@@ -1,0 +1,46 @@
+"""Model registry and factory (counterpart of
+``segmentron_tpu/models/model_zoo.py::get_segmentation_model``)."""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from ..config import cfg
+from ..data.dataloader import NUM_CLASS
+from ..modules import norm_from_cfg
+from ..utils import resolve_device
+from ..utils.registry import Registry
+from .segbase import init_weights
+
+MODEL_REGISTRY = Registry("MODEL")
+
+__all__ = ["MODEL_REGISTRY", "get_segmentation_model"]
+
+_NOT_PORTED = ("INT8_ACTIVATIONS", "USE_PALLAS_SEPCONV", "FUSED_SEPCONV_V3")
+
+
+def get_segmentation_model(device=None, generator: torch.Generator = None):
+    """Build the model named by ``cfg.MODEL.MODEL_NAME`` in eval mode,
+    randomly initialised from ``generator`` (default: seeded with
+    ``cfg.SEED``), on ``device`` (default CUDA; raises when there is
+    none) with activations in ``channels_last`` memory."""
+    for key in _NOT_PORTED:
+        if cfg.TPU[key]:
+            raise NotImplementedError(f"cfg.TPU.{key} is not ported to PyTorch yet")
+    device = resolve_device(device)
+    name = cfg.MODEL.MODEL_NAME
+    nclass = NUM_CLASS[cfg.DATASET.NAME.lower()]
+    model = MODEL_REGISTRY.get(name)(
+        nclass=nclass,
+        encoder_norm=norm_from_cfg(cfg, encoder=True),
+        decoder_norm=norm_from_cfg(cfg, encoder=False),
+    )
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(cfg.SEED))
+    init_weights(model, generator)
+    logging.getLogger(__name__).info(
+        "Built model %s (backbone=%s, nclass=%d)", name, cfg.MODEL.BACKBONE, nclass
+    )
+    return model.eval().to(device, memory_format=torch.channels_last)

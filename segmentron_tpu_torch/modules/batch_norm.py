@@ -1,0 +1,69 @@
+"""Normalization factory (counterpart of
+``segmentron_tpu/modules/batch_norm.py``), for inference.
+
+``cfg.MODEL.BN_TYPE`` BN, SyncBN and FrozenBN all normalize with the
+running statistics in eval, so each is a ``BatchNorm2d`` here; GN is a
+``GroupNorm``. The encoder and the decoder carry separate epsilons
+(``BN_EPS_FOR_ENCODER`` / ``BN_EPS_FOR_DECODER``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+__all__ = ["BatchNorm2d", "NormConfig", "norm_from_cfg"]
+
+_TORCH_BN_DEFAULT_MOMENTUM = 0.1
+_TORCH_BN_DEFAULT_EPS = 1e-5
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose eval forward takes an input of any float
+    dtype with f32 statistics and affine: the output has the input's
+    dtype (the JAX package casts weights to the compute dtype and keeps
+    the statistics in f32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x)
+        return F.batch_norm(
+            x, self.running_mean, self.running_var, self.weight.float(),
+            self.bias.float(), False, 0.0, self.eps,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class NormConfig:
+    """Static norm configuration threaded through model constructors."""
+
+    bn_type: str = "BN"  # BN | SyncBN | FrozenBN | GN
+    eps: float = _TORCH_BN_DEFAULT_EPS
+    torch_momentum: float = _TORCH_BN_DEFAULT_MOMENTUM
+    group_count: int = 32
+
+    def make(self, channels: int) -> nn.Module:
+        if self.bn_type in ("BN", "SyncBN", "FrozenBN"):
+            return BatchNorm2d(channels, eps=self.eps, momentum=self.torch_momentum)
+        if self.bn_type == "GN":
+            return nn.GroupNorm(self.group_count, channels, eps=self.eps)
+        raise ValueError(f"Unknown BN_TYPE: {self.bn_type}")
+
+
+def norm_from_cfg(cfg, encoder: bool = True) -> NormConfig:
+    """NormConfig from the config tree: BN_TYPE, BN_MOMENTUM (torch
+    convention) and the encoder/decoder epsilons."""
+    eps = cfg.MODEL.BN_EPS_FOR_ENCODER if encoder else cfg.MODEL.BN_EPS_FOR_DECODER
+    momentum: Optional[float] = cfg.MODEL.BN_MOMENTUM
+    return NormConfig(
+        bn_type=cfg.MODEL.BN_TYPE,
+        eps=float(eps) if eps is not None else _TORCH_BN_DEFAULT_EPS,
+        torch_momentum=(
+            float(momentum) if momentum is not None else _TORCH_BN_DEFAULT_MOMENTUM
+        ),
+        group_count=int(cfg.MODEL.DEFAULT_GROUP_NUMBER),
+    )

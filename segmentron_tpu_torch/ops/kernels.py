@@ -1,0 +1,89 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside the
+package (``.gitignore`` lists it) the first time it is needed, then
+loaded with ``ctypes``. The hash is of the source, so an edited source
+is rebuilt. Nothing is built or loaded at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+__all__ = ["SOURCES", "build", "library"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("entrychain",)
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((_SRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
+    """Compile every source in ``names`` that has no library yet, one
+    ``nvcc`` each, all started together. Returns seconds per source
+    (0.0 for one already built); raises with the compiler's output when
+    a build fails. The compiler's report (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside each library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    times = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            times[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return times
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _loaded[name] = lib
+    return lib
