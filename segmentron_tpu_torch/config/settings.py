@@ -11,8 +11,15 @@ the same defaults, so every ``configs/*.yaml`` loads unchanged. The
 - ``STEM_WBLOCK`` and ``DW_SHIFT`` name exact reformulations of plain
   convolutions for the TPU; PyTorch computes the same math, so they
   have no effect here.
-- ``INT8_ACTIVATIONS``, ``USE_PALLAS_SEPCONV`` and ``FUSED_SEPCONV_V3``
-  are not ported yet: a model built with one of them set raises
+- ``USE_PALLAS_SEPCONV`` routes the admitted separable convs through
+  the fused kernel (``ops/sepconv.py``); ``INT8_ACTIVATIONS="pw"`` with
+  ``INT8_K`` is the int8 serving mode of the separable convs
+  (``ops/quant.py``), in which ``FUSED_SEPCONV_V3``, ``FUSED_ENTRY_V3``
+  and ``FUSED_SEPCONV_MIN_BYTES`` run whole Xception blocks as chains
+  of the fused kernel, all gated as in the JAX package.
+- ``INT8_ACTIVATIONS`` ``True``/"full", ``INT8_RESNET`` and calibration
+  (``INT8_CALIBRATE``, ``INT8_CALIBRATION_BATCHES > 0``) are not ported
+  yet: a model or an evaluator built with one of them set raises
   ``NotImplementedError``.
 - The mesh, pipeline, training and TPU compiler keys are accepted and
   not read.

@@ -5,8 +5,9 @@ confusion matrix: ``TEST.SCALES=[1.0]``, no flip, no sliding window.
 With one scale and no flip the JAX package's summed softmax has the
 argmax of the logits, which is what is scored here. The other test-time
 modes (multi-scale, flip, sliding window, shape buckets, several
-devices, spatial sharding) and checkpoint loading are not ported yet
-and raise ``NotImplementedError``.
+devices, spatial sharding), checkpoint loading and int8 calibration
+(``TPU.INT8_CALIBRATION_BATCHES``) are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from ..config import cfg
 from ..data import get_segmentation_dataset
 from ..models import get_segmentation_model
+from ..models.model_zoo import check_int8_supported
 from ..utils import SegmentationMetric, resolve_device
 from .steps import make_predict_fn
 
@@ -26,6 +28,7 @@ __all__ = ["Evaluator"]
 
 
 def _check_supported() -> None:
+    check_int8_supported()
     unsupported = {
         "TEST.SCALES": list(cfg.TEST.SCALES) != [1.0],
         "TEST.FLIP": bool(cfg.TEST.FLIP),

@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from ..modules import ASPP, ConvBNReLU, FCNHead, NormConfig, SeparableConv2d, conv2d
+from ..modules import (
+    ASPP, ConvBNReLU, FCNHead, NormConfig, SeparableConv2d, SepconvRoutes, conv2d,
+)
 from ..ops import resize_bilinear
 from .model_zoo import MODEL_REGISTRY
 from .segbase import SegBaseModel
@@ -23,21 +25,23 @@ class DeepLabV3Plus(SegBaseModel):
                  encoder_norm: NormConfig = NormConfig(),
                  decoder_norm: NormConfig = NormConfig(), use_aspp: bool = True,
                  enable_decoder: bool = True, aspp_sep: bool = True,
-                 decoder_sep: bool = True, output_stride: int = 16):
+                 decoder_sep: bool = True, output_stride: int = 16,
+                 routes: SepconvRoutes = SepconvRoutes()):
         super().__init__(nclass, backbone, aux, encoder_norm, decoder_norm)
         norm = self.decoder_norm
         self.enable_decoder = enable_decoder
         self.decoder_sep = decoder_sep
         rates = (12, 24, 36) if output_stride == 8 else (6, 12, 18)
         if use_aspp:
-            self.head = ASPP(2048, 256, rates, separable=aspp_sep, norm=norm)
+            self.head = ASPP(2048, 256, rates, separable=aspp_sep, norm=norm, routes=routes)
         else:
             self.head = ConvBNReLU(2048, 256, 3, norm=norm)
         if enable_decoder:
             self.c1_proj = ConvBNReLU(128, 48, 1, padding=0, norm=norm)
             for i, cin in enumerate((256 + 48, 256)):
                 if decoder_sep:
-                    layer = SeparableConv2d(cin, 256, 3, norm=norm, relu_first=False)
+                    layer = SeparableConv2d(cin, 256, 3, norm=norm, relu_first=False,
+                                            routes=routes)
                 else:
                     layer = ConvBNReLU(cin, 256, 3, norm=norm)
                 setattr(self, f"decoder{i}", layer)
@@ -82,4 +86,5 @@ def _deeplabv3_plus(nclass, encoder_norm, decoder_norm):
         aspp_sep=bool(d.ASPP_WITH_SEP_CONV),
         decoder_sep=bool(d.DECODER_USE_SEP_CONV),
         output_stride=int(cfg.MODEL.OUTPUT_STRIDE),
+        routes=SepconvRoutes.from_cfg(cfg),
     )

@@ -16,9 +16,25 @@ from .segbase import init_weights
 
 MODEL_REGISTRY = Registry("MODEL")
 
-__all__ = ["MODEL_REGISTRY", "get_segmentation_model"]
+__all__ = ["MODEL_REGISTRY", "check_int8_supported", "get_segmentation_model"]
 
-_NOT_PORTED = ("INT8_ACTIVATIONS", "USE_PALLAS_SEPCONV", "FUSED_SEPCONV_V3")
+
+def check_int8_supported() -> None:
+    """Raise for the int8 settings that are not ported yet: of
+    ``cfg.TPU.INT8_ACTIVATIONS`` only the "pw" mode is (not ``True`` /
+    "full"), and neither ``INT8_RESNET`` nor calibration
+    (``INT8_CALIBRATE``, ``INT8_CALIBRATION_BATCHES > 0``) is."""
+    t = cfg.TPU
+    unsupported = {
+        f"TPU.INT8_ACTIVATIONS={t.INT8_ACTIVATIONS!r}":
+            t.INT8_ACTIVATIONS not in (False, None, "", "pw"),
+        "TPU.INT8_RESNET": bool(t.INT8_RESNET),
+        "TPU.INT8_CALIBRATE": bool(t.INT8_CALIBRATE),
+        "TPU.INT8_CALIBRATION_BATCHES": int(t.INT8_CALIBRATION_BATCHES) > 0,
+    }
+    for key, on in unsupported.items():
+        if on:
+            raise NotImplementedError(f"cfg.{key} is not ported to PyTorch yet")
 
 
 def get_segmentation_model(device=None, generator: torch.Generator = None):
@@ -26,9 +42,7 @@ def get_segmentation_model(device=None, generator: torch.Generator = None):
     randomly initialised from ``generator`` (default: seeded with
     ``cfg.SEED``), on ``device`` (default CUDA; raises when there is
     none) with activations in ``channels_last`` memory."""
-    for key in _NOT_PORTED:
-        if cfg.TPU[key]:
-            raise NotImplementedError(f"cfg.TPU.{key} is not ported to PyTorch yet")
+    check_int8_supported()
     device = resolve_device(device)
     name = cfg.MODEL.MODEL_NAME
     nclass = NUM_CLASS[cfg.DATASET.NAME.lower()]

@@ -1,4 +1,4 @@
-from .basic import ConvBNReLU, SeparableConv2d, conv2d
+from .basic import ConvBNReLU, SeparableConv2d, SepconvRoutes, conv2d
 from .batch_norm import BatchNorm2d, NormConfig, norm_from_cfg
 from .module import ASPP, FCNHead
 
@@ -9,6 +9,7 @@ __all__ = [
     "FCNHead",
     "NormConfig",
     "SeparableConv2d",
+    "SepconvRoutes",
     "conv2d",
     "norm_from_cfg",
 ]

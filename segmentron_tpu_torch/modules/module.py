@@ -10,7 +10,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import global_avg_pool
-from .basic import ConvBNReLU, SeparableConv2d, conv2d
+from .basic import ConvBNReLU, SeparableConv2d, SepconvRoutes, conv2d
 from .batch_norm import NormConfig
 
 __all__ = ["ASPP", "FCNHead"]
@@ -37,14 +37,14 @@ class ASPP(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int = 256,
                  atrous_rates: Sequence[int] = (6, 12, 18), separable: bool = True,
-                 norm: NormConfig = NormConfig()):
+                 norm: NormConfig = NormConfig(), routes: SepconvRoutes = SepconvRoutes()):
         super().__init__()
         self.separable = separable
         self.b0 = ConvBNReLU(in_channels, out_channels, 1, padding=0, norm=norm)
         for i, rate in enumerate(atrous_rates):
             if separable:
                 branch = SeparableConv2d(in_channels, out_channels, 3, dilation=rate,
-                                         norm=norm, relu_first=False)
+                                         norm=norm, relu_first=False, routes=routes)
             else:
                 branch = ConvBNReLU(in_channels, out_channels, 3, dilation=rate, norm=norm)
             setattr(self, f"b{i + 1}", branch)

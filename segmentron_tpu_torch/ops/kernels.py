@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside the
 package (``.gitignore`` lists it) the first time it is needed, then
 loaded with ``ctypes``. The hash is of the source, so an edited source
-is rebuilt. Nothing is built or loaded at import time.
+is rebuilt. Nothing is built or loaded at import time. ``DEFINES`` maps a
+source to extra compiler flags (a probe build); they enter the hash.
 """
 
 from __future__ import annotations
@@ -16,18 +17,19 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
-__all__ = ["SOURCES", "build", "library"]
+__all__ = ["DEFINES", "SOURCES", "build", "library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("entrychain",)
+SOURCES = ("entrychain", "sepconv")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+DEFINES: Dict[str, Tuple[str, ...]] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -42,7 +44,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((_SRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    flags = " ".join(DEFINES.get(name, ())).encode()
+    digest = hashlib.sha256((_SRC / f"{name}.cu").read_bytes() + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -61,7 +64,8 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
             times[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_NVCC_FLAGS, *DEFINES.get(name, ()), "-o", str(tmp),
+               str(_SRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out, time.perf_counter())

@@ -57,12 +57,15 @@ def test_flagship_yaml_builds_model(cfg):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("TPU.INT8_ACTIVATIONS", "pw"),
-    ("TPU.USE_PALLAS_SEPCONV", "true"),
-    ("TPU.FUSED_SEPCONV_V3", "true"),
+    ("TPU.INT8_ACTIVATIONS", "full"),
+    ("TPU.INT8_ACTIVATIONS", "true"),
+    ("TPU.INT8_CALIBRATION_BATCHES", "2"),
 ])
 def test_not_ported_knobs_raise(cfg, key, value):
     cfg.update_from_file(FLAGSHIP)
+    cfg.update_from_list(["TPU.USE_PALLAS_SEPCONV", "true", "TPU.FUSED_SEPCONV_V3", "true",
+                          "TPU.FUSED_ENTRY_V3", "block2,block3"])
+    get_segmentation_model("cpu")  # these are ported, and so is TPU.INT8_ACTIVATIONS="pw"
     cfg.update_from_list([key, value])
     with pytest.raises(NotImplementedError):
         get_segmentation_model("cpu")

@@ -3,7 +3,9 @@ model on the same converted variables, on the CPU: the backbone's c1-c4
 taps and the logits, at OS16 and OS8, with the entry through the fused
 kernels' route ("block1", "stem"; their plain versions on the CPU) and
 through the plain modules. The JAX model takes its unfused entry on the
-CPU, which is the reference."""
+CPU, which is the reference. Also path A (``TPU.USE_PALLAS_SEPCONV``):
+the fused separable-conv route of both packages (the int8 path B:
+tests/test_torch_int8pw.py)."""
 
 import jax
 import numpy as np
@@ -119,3 +121,39 @@ def test_fused_entry_weights_follow_in_place_updates(flagship_cfg):
         plain = bb(x)[0]
     np.testing.assert_allclose(fused.numpy(), plain.numpy(), rtol=TAP_TOL, atol=TAP_TOL)
     assert not np.allclose(before.numpy(), fused.numpy(), rtol=TAP_TOL, atol=TAP_TOL)
+
+
+def test_deeplab_path_a_matches_jax(flagship_cfg, monkeypatch):
+    """Path A (``USE_PALLAS_SEPCONV``): f32 logits against the JAX model
+    with its v2 Pallas kernels in interpret mode (the port's wrappers
+    compute their plain versions), at LOGIT_TOL."""
+    from segmentron_tpu_torch.modules import basic as port_basic
+
+    monkeypatch.setenv("SEGMENTRON_PALLAS_INTERPRET", "1")  # read by the JAX package only
+    calls = []
+    fn = port_basic.fused_sepconv_infer_v2
+    monkeypatch.setattr(port_basic, "fused_sepconv_infer_v2",
+                        lambda *a, **kw: calls.append(1) or fn(*a, **kw))
+    x = np.random.RandomState(0).randn(1, 128, 64, 3).astype(np.float32)  # 8 middle-flow rows
+    snapshot = jax_cfg.to_dict()
+    try:
+        jax_cfg.MODEL.XCEPTION.MIDDLE_BLOCKS = 2
+        jax_cfg.MODEL.OUTPUT_STRIDE = 16
+        jax_cfg.TPU.USE_PALLAS_SEPCONV = True
+        jax_cfg.TPU.FUSED_STEM = False  # the entry through the plain modules: tested above
+        model = JaxDeepLabV3Plus(nclass=19, backbone="xception65",
+                                 encoder_norm=JaxNorm(eps=1e-3), decoder_norm=JaxNorm(),
+                                 output_stride=16)
+        variables = jax_variables(model, x)
+        want = np.asarray(jax.jit(lambda v, x: model.apply(v, x, False)[0])(variables, x))
+    finally:
+        _restore(jax_cfg, snapshot)
+    flagship_cfg.update_from_list(["TPU.USE_PALLAS_SEPCONV", "True", "TPU.FUSED_STEM", "False"])
+    port = get_segmentation_model("cpu")
+    port.load_state_dict(from_flax_variables(variables), strict=True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x))[0].numpy()
+    # entry blocks 2-3, the middle flow, exit1 and the decoder take the kernel
+    assert len(calls) >= 12
+    assert got.shape == want.shape == (1, 128, 64, 19)
+    assert float(np.abs(got - want).max()) <= LOGIT_TOL * max(1.0, float(np.abs(want).max()))
