@@ -20,7 +20,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    end (output stride 8, ``int8_dot``), the stride-2 conv-skip end of
    block2 at 256x512, block3's conv-skip end, a 128-channel layer, the
    output-stride-16 middle layer, a decoder layer and a 1536-channel
-   exit-flow layer (bf16 / f32 products). ``--kernels-only`` stops here;
+   exit-flow layer (bf16 / f32 products); the flash-attention forward
+   (``ops/attention.py``) at DANet's and OCNet's shapes (P = 32768, and
+   the pyramid's N=4/P=8192 and N=9/P=3698) and two small ragged cases,
+   out and lse, beside ``scaled_dot_product_attention``'s time.
+   ``--kernels-only`` stops here;
 4. model: DeepLabv3+ / Xception-65 (16 middle blocks, 19 classes) from
    the flagship YAML with random weights from a seed, in f32 (TF32
    off). Output stride 16: the fused entry routes ("block1", "stem")
@@ -38,7 +42,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    forward times of A, B and their unfused twins in turns; each bf16
    route's argmax against its f32 reference, no further from it than
    its unfused twin; profiler breakdowns of one forward of the default
-   path and of path B (written to ``OUT_DIR``).
+   path and of path B (written to ``OUT_DIR``);
+6. DANet and OCNet over ResNet-101 at output stride 8, from their
+   serving YAMLs on the bf16 path (``TPU.INT8_RESNET False``), full
+   width, random weights with PAM's and CAM's ``gamma`` set to
+   ``GAMMA``: in f32 the flash-kernel route against the dense route
+   (argmax >= 0.995; DANet, OCNet base and pyramid); DANet and OCNet
+   base through the ``Evaluator`` in bf16 with the counters read around
+   it (one launch a forward), the bf16 kernel route's argmax held to the
+   f32 reference no worse than the dense route's (-0.005), both routes
+   timed in turns, one profile each; OCNet pyramid's three launches.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -68,6 +81,21 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 OUT_DIR = "chiprun_out"
 SEPCONV_SOURCE = "segmentron_tpu_torch/csrc/sepconv.cu"
 ENTRY_SOURCE = "segmentron_tpu_torch/csrc/entrychain.cu"
+ATTENTION_SOURCE = "segmentron_tpu_torch/csrc/attention.cu"
+ATTENTION_REPLACES = ("segmentron_tpu/ops/attention.py:44 (_flash_kernel; "
+                      "_attention_pallas :101, pallas_call :117)")
+# The DANet and OCNet serving configs, on the bf16 path: INT8_RESNET is not
+# ported, and the crop is the whole frame (whole-image eval).
+ATTENTION_MODELS = {
+    "DANet": "configs/serve_cityscapes_danet_int8.yaml",
+    "OCNet": "configs/serve_cityscapes_ocnet_int8.yaml",
+}
+ATTENTION_OPTS = ["TPU.INT8_RESNET", "False", "TEST.CROP_SIZE", None,
+                  "DATASET.NAME", "synthetic"]
+# PAM's and CAM's gamma start at 0 in both packages, which makes PAM(x) = x:
+# random weights get this value instead, so the attention reaches the logits.
+GAMMA = 0.5
+SFU_EXP_PER_S = 16 * 132 * 1.98e9  # H100 SXM: 16 exponentials a clock per SM
 
 
 def fail(msg):
@@ -369,6 +397,113 @@ def check_sepconv_kernels(torch, sepconv, card, dev, gen):
     return results
 
 
+# ----------------------------------------------------------- flash attention
+# The shapes the path gives the kernel at 1024x2048, output stride 8
+# (c4 128x256, P = 32768), and two small ragged cases that run the
+# kernel's other value widths (128, 256). ``main``: the line's.
+FLASH_CASES = [
+    dict(what="DANet PAM", n=1, p=32768, dk=64, dv=512, scale=1.0, main=True),
+    dict(what="OCNet base / pyramid level 1", n=1, p=32768, dk=256, dv=512, scale=256 ** -0.5),
+    dict(what="OCNet pyramid level 2", n=4, p=8192, dk=256, dv=512, scale=256 ** -0.5),
+    dict(what="OCNet pyramid level 3", n=9, p=3698, dk=256, dv=512, scale=256 ** -0.5),
+    dict(what="ragged", n=2, p=600, dk=32, dv=128, scale=1.0),
+    dict(what="ragged, Dv 256", n=1, p=1000, dk=48, dv=256, scale=48 ** -0.5),
+]
+
+
+def flash_bound(case, itemsize, dname):
+    """(ms, 'bytes' | 'operations', exp ms): q, k, v read once, out and
+    lse written once; both products at the peak of their type; the
+    exponentials on the special-function units, stated beside."""
+    n, p, dk, dv = case["n"], case["p"], case["dk"], case["dv"]
+    t_ops = 2 * n * p * p * (dk + dv) / PEAK_OPS[dname]
+    t_bytes = (n * p * (2 * dk + 2 * dv) * itemsize + n * p * 4) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * n * p * p / SFU_EXP_PER_S)
+
+
+def sdpa_library(torch, q, k, v, scale):
+    """(ms, backend) of ``F.scaled_dot_product_attention`` on the same
+    inputs (one head), or (None, the reason it refused)."""
+    from torch.nn.attention import SDPBackend
+
+    q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+    names = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend) if n.isupper()}
+    backend = names.get(int(torch._fused_sdp_choice(q4, k4, v4, scale=scale)), "?")
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+    try:
+        call()
+    except RuntimeError as e:
+        return None, f"{backend}: refused: {str(e).splitlines()[0][:160]}"
+    return median_ms(torch, call, n=10, warmup=2), backend
+
+
+def check_flash_kernel(torch, attention, card, dev, gen):
+    """Every case in f32 and bf16: the wrapper (which launches the kernel)
+    against the plain version over key blocks of the kernel's bf16 tile
+    (64), so that p rounds at the same running max; times of the kernel,
+    the plain version and ``scaled_dot_product_attention``."""
+    results = {}
+    for case in FLASH_CASES:
+        n, p, dk, dv = case["n"], case["p"], case["dk"], case["dv"]
+        for dt in (torch.float32, torch.bfloat16):
+            dname = dtype_name(dt)
+            q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
+            v = torch.randn(n, p, dv, generator=gen).to(dev, dt)
+            scale = case["scale"]
+            ref, ref_lse = attention.flash_attention_plain(q, k, v, scale, block_k=64)
+            before = attention.flash_attention.launches
+            got, lse = attention.flash_attention(q, k, v, scale)
+            torch.cuda.synchronize()
+            if attention.flash_attention.launches != before + 1:
+                fail("flash_attention: the wrapper did not count its launch")
+            if (got.shape != ref.shape or lse.shape != (n, p)
+                    or not (torch.isfinite(got.float()).all() and torch.isfinite(lse).all())):
+                fail(f"flash_attention {dname} {case['what']}: shapes {tuple(got.shape)}, "
+                     f"{tuple(lse.shape)} or non-finite output")
+            err = (got.float() - ref.float()).abs()
+            max_err, max_ref = err.max().item(), ref.float().abs().max().item()
+            mean_err, mean_ref = err.mean().item(), ref.float().abs().mean().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            lse_ref = ref_lse.abs().max().item()
+            # Bars as for the other kernels. lse is f32 in both: the same
+            # f32 sums in another order.
+            if dt == torch.float32:
+                ok = max_err <= 1e-4 * max_ref
+                rule = "max|err| <= 1e-4 max|ref|"
+            else:
+                ok = max_err <= 3e-2 * max_ref and mean_err <= 2e-3 * mean_ref
+                rule = "max|err| <= 3e-2 max|ref|, mean|err| <= 2e-3 mean|ref|"
+            ok = ok and lse_err <= 1e-4 * lse_ref
+            out, out_lse = torch.empty_like(got), torch.empty_like(lse)
+            kernel_ms = median_ms(torch, lambda: attention._launch(q, k, v, scale, out, out_lse))
+            plain_ms = median_ms(torch, lambda: attention.flash_attention_plain(
+                q, k, v, scale, block_k=64), n=5, warmup=1)
+            library_ms, backend = sdpa_library(torch, q, k, v, scale)
+            bound_ms, bound_by, exp_ms = flash_bound(case, q.element_size(), dname)
+            lib = "refused" if library_ms is None else f"{library_ms:.4f} ms"
+            print(f"{card} flash_attention {dname} {case['what']} N={n} P={p} Dk={dk} Dv={dv} "
+                  f"scale={scale:.6g}: max|err| {max_err:.6g} (max|ref| {max_ref:.6g}), "
+                  f"mean|err| {mean_err:.6g} (mean|ref| {mean_ref:.6g}), lse max|err| "
+                  f"{lse_err:.6g} (max|lse| {lse_ref:.6g}) [{rule}; lse <= 1e-4 max|lse|: "
+                  f"{'ok' if ok else 'FAIL'}]; kernel {kernel_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib} ({backend}), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; exponentials {exp_ms:.4f} ms)")
+            if not ok:
+                fail(f"flash_attention {dname} ({case['what']}) disagrees with its plain version")
+            results.setdefault(case["what"], {})[dname] = dict(
+                max_abs_err=max_err, lse_max_abs_err=lse_err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, exp_bound_ms=exp_ms,
+                library_ms=library_ms, library_backend=backend, shape=[n, p, dk, dv],
+                main=bool(case.get("main")))
+            del q, k, v, ref, ref_lse, got, lse, err, out, out_lse
+        torch.cuda.empty_cache()
+    return results
+
+
 # -------------------------------------------------------------------- model
 def set_routes(model, routes):
     for m in model.modules():
@@ -401,7 +536,7 @@ def gated_launches(torch, model, image, predict):
                 fused_sepconv_infer_v3_skip=0,
                 fused_stem_block1=int(model.backbone._fused_stem_mode(
                     torch.empty((1, 3) + tuple(image.shape[1:3]), device="meta")) == "block1"),
-                fused_stem=0)
+                fused_stem=0, flash_attention=0)
     in_chain = set()
     for m in shapes:
         if isinstance(m, XceptionBlock) and m._fused_chain(meta(m)):
@@ -416,6 +551,164 @@ def gated_launches(torch, model, image, predict):
                 and m._fusable(meta(m))):
             want["fused_sepconv_infer_v2"] += 1
     return want
+
+
+def set_attention(model, use_pallas):
+    """Route every spatial attention of ``model`` through the flash kernel
+    (True) or the dense function (False)."""
+    for m in model.modules():
+        if hasattr(m, "use_pallas"):
+            m.use_pallas = use_pallas
+
+
+def attention_models(torch, card, dev, defaults, counts, profile_forward):
+    """Phase 6: DANet and OCNet over ResNet-101 at output stride 8 from
+    their serving configs, full width, random weights from the seed, BN
+    statistics drawn as for the flagship and ``gamma = GAMMA``.
+
+    In f32 (TF32 off) the kernel route's argmax is held to the dense
+    route's (>= 0.995), for DANet, OCNet base and OCNet pyramid; then,
+    with the launch counters set to 0 just before and read just after,
+    each of DANet and OCNet base runs through the ``Evaluator`` in bf16
+    over synthetic 1024x2048 images (one kernel launch a forward); the
+    bf16 kernel route's argmax is held to the f32 reference no worse than
+    the dense bf16 route's, less 0.005; both routes' forwards are timed in
+    turns and one kernel-route forward is profiled. OCNet pyramid runs one
+    bf16 forward (three launches: levels 1, 2 and 3; level 6 is dense).
+
+    ``defaults``: the cfg's default tree; ``counts``: (zero the launch
+    counters, read them)."""
+    from segmentron_tpu_torch.config import cfg
+    from segmentron_tpu_torch.data.dataloader import SyntheticSegmentation
+    from segmentron_tpu_torch.engine import Evaluator, make_predict_fn
+    from segmentron_tpu_torch.models import get_segmentation_model
+
+    zero_counts, read_counts = counts
+
+    def agreement(a, b):
+        return (a == b).float().mean().item()
+
+    def build(name, arch="base"):
+        cfg.defrost()
+        cfg.clear()
+        for key, value in type(cfg)(defaults).items():  # as a fresh process has it
+            dict.__setitem__(cfg, key, value)
+        cfg.update_from_file(ATTENTION_MODELS[name])
+        cfg.update_from_list(ATTENTION_OPTS + ["MODEL.OCNet.OC_ARCH", arch])
+        gen = torch.Generator().manual_seed(int(cfg.SEED))
+        model = get_segmentation_model(dev, generator=gen)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    c = m.num_features
+                    m.weight.copy_(torch.rand(c, generator=gen) * 0.5 + 0.75)
+                    m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+                    m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                    m.running_var.copy_(torch.rand(c, generator=gen) * 0.5 + 0.75)
+            gammas = [p for n, p in model.named_parameters() if n.endswith("gamma")]
+            for p in gammas:
+                p.fill_(GAMMA)
+        return model, len(gammas)
+
+    data = SyntheticSegmentation(split="val", mode="testval", length=2, image_size=SHAPE[1:3])
+    image = torch.from_numpy(data[0][0][None]).to(dev)
+    per_forward = {"DANet": 1, "OCNet": 1, "OCNet pyramid": 3}
+    results = {}
+    for label in ("DANet", "OCNet", "OCNet pyramid"):
+        name, arch = (label, "base") if label != "OCNet pyramid" else ("OCNet", "pyramid")
+        torch.backends.cudnn.allow_tf32 = False
+        model, n_gamma = build(name, arch)
+        predict32 = make_predict_fn(model, "float32", dev)
+        with torch.inference_mode():
+            set_attention(model, False)
+            ref = predict32(image).argmax(-1)
+            set_attention(model, True)
+            zero_counts()
+            kernel32 = predict32(image).argmax(-1)
+            launches32 = read_counts()["flash_attention"]
+        agree32 = agreement(kernel32, ref)
+        print(f"{card} {label} / resnet101, output stride 8, {model.nclass} classes, "
+              f"{sum(p.numel() for p in model.parameters())} parameters, gamma {GAMMA} "
+              f"({n_gamma}); f32 {SHAPE}: kernel route launches {launches32}, argmax agreement "
+              f"with the dense route {agree32:.6f} [>= 0.995]")
+        if launches32 != per_forward[label]:
+            fail(f"{label}: {launches32} flash launches in an f32 forward, want "
+                 f"{per_forward[label]}")
+        if agree32 < 0.995:
+            fail(f"{label}: the kernel route's f32 argmax agrees with the dense route's on "
+                 f"less than 0.995 of the pixels")
+        torch.backends.cudnn.allow_tf32 = True  # the model's own default from here on
+        if label == "OCNet pyramid":
+            predict = make_predict_fn(model, cfg.TPU.COMPUTE_DTYPE, dev)
+            with torch.inference_mode():
+                zero_counts()
+                half = predict(image).argmax(-1)
+                launches = read_counts()["flash_attention"]
+            agree16 = agreement(half, ref)
+            print(f"{card} {label} bf16: launches {launches} in one forward, argmax agreement "
+                  f"with the f32 reference {agree16:.6f}")
+            if launches != per_forward[label]:
+                fail(f"{label}: {launches} flash launches in a bf16 forward, want 3")
+            results[label] = dict(launches_per_forward=launches, argmax_agreement_f32=agree32,
+                                  argmax_agreement_bf16_vs_f32=agree16)
+            continue
+
+        # the main path: the Evaluator, counters read around it
+        evaluator = Evaluator(model, data)  # casts the weights to bf16
+        zero_counts()
+        t0 = time.perf_counter()
+        pix_acc, miou, _ = evaluator.eval()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"{card} eval, {label}: {len(data)} images {SHAPE[1]}x{SHAPE[2]} "
+              f"{cfg.TPU.COMPUTE_DTYPE} in {seconds:.3f} s: pixAcc {pix_acc:.6f}, mIoU "
+              f"{miou:.6f}; launches {launches}")
+        if launches["flash_attention"] != per_forward[label] * len(data):
+            fail(f"{label}: flash_attention was not launched once per image")
+        if any(v for k, v in launches.items() if k != "flash_attention"):
+            fail(f"{label}: kernels of other paths launched")
+        predict = evaluator.predict_fn
+        with torch.inference_mode():
+            logits = predict(image)
+            if logits.shape != (1, SHAPE[1], SHAPE[2], model.nclass):
+                fail(f"{label}: logits shape {tuple(logits.shape)}")
+            if not torch.isfinite(logits).all():
+                fail(f"{label}: non-finite logits")
+            half = {}
+            for route in (True, False):
+                set_attention(model, route)
+                half[route] = predict(image).argmax(-1)
+            # kernel and dense routes in turns, 2 rounds of 8
+            fwd = {True: [], False: []}
+            for rnd in range(2):
+                for route in ((True, False) if rnd == 0 else (False, True)):
+                    set_attention(model, route)
+                    fwd[route].append(median_ms(torch, lambda: predict(image), n=8, warmup=2))
+            set_attention(model, True)
+        agree16 = {route: agreement(half[route], ref) for route in (True, False)}
+        ms = {route: statistics.median(v) for route, v in fwd.items()}
+        print(f"{card} {label} bf16 forward (1, {SHAPE[1]}, {SHAPE[2]}, 3) uint8 -> f32 logits, "
+              f"ms (img/s), medians of rounds in turns: kernel route {ms[True]:.3f} "
+              f"({1e3 / ms[True]:.2f}) {[round(v, 3) for v in fwd[True]]}, dense route "
+              f"{ms[False]:.3f} ({1e3 / ms[False]:.2f}) {[round(v, 3) for v in fwd[False]]}; "
+              f"argmax agreement with the f32 reference: kernel {agree16[True]:.6f}, dense "
+              f"{agree16[False]:.6f} [kernel >= dense - 0.005]")
+        if agree16[True] < agree16[False] - 0.005:
+            fail(f"{label}: the kernel route's bf16 argmax is further from the f32 reference "
+                 f"than the dense route's by more than 0.005")
+        profile = profile_forward(predict, f"{label} kernel route", image,
+                                  f"chip_smoke_profile_{name.lower()}.txt")
+        results[label] = dict(
+            images=len(data), eval_seconds=seconds, pix_acc=pix_acc, miou=miou,
+            launches=launches["flash_attention"], forward_ms=ms[True],
+            img_per_s=1e3 / ms[True], dense_forward_ms=ms[False],
+            rounds={"kernel": fwd[True], "dense": fwd[False]},
+            argmax_agreement_f32=agree32,
+            argmax_agreement_bf16_vs_f32={"kernel": agree16[True], "dense": agree16[False]},
+            profile=profile)
+        del evaluator, predict, model
+        torch.cuda.empty_cache()
+    return results
 
 
 def probe(torch, card):
@@ -462,11 +755,12 @@ def main():
     from segmentron_tpu_torch.engine import Evaluator, make_predict_fn
     from segmentron_tpu_torch.models import get_segmentation_model
     from segmentron_tpu_torch.modules import SepconvRoutes
-    from segmentron_tpu_torch.ops import entrychain, sepconv
+    from segmentron_tpu_torch.ops import attention, entrychain, sepconv
     from segmentron_tpu_torch.ops.kernels import BUILD_DIR, SOURCES, build
 
     if "segmentron_tpu" in sys.modules or "jax" in sys.modules:
         fail("JAX or the JAX package was imported")
+    defaults = cfg.to_dict()
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
 
@@ -503,6 +797,7 @@ def main():
         "fused_stem_block1": entrychain.fused_stem_block1,
         "fused_stem": entrychain.fused_stem,
         **{name: getattr(sepconv, name) for name in SEPCONV_REPLACES},
+        "flash_attention": attention.flash_attention,
     }
 
     def zero_counts():
@@ -512,9 +807,10 @@ def main():
     def read_counts():
         return {name: fn.launches for name, fn in wrappers.items()}
 
+    flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)
     if "--kernels-only" in sys.argv[1:]:
-        print(json.dumps({"sepconv": sep_results}))
+        print(json.dumps({"sepconv": sep_results, "flash_attention": flash_results}))
         print(f"kernels only: {time.perf_counter() - t_start:.1f} s")
         return 0
     entry_kernels = check_entry_kernels(torch, entrychain, card, dev, gen)
@@ -776,7 +1072,7 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_forward(fn, label, path):
+    def profile_forward(fn, label, image, path):
         with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
         ) as prof:
@@ -800,11 +1096,22 @@ def main():
               f"launches; top kernels by device time:")
         for e in device_kernels[:12]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+        return dict(kernels_ms=device_us / 1e3, window_ms=window_us / 1e3,
+                    idle_share=1 - device_us / window_us,
+                    launches=sum(e.count for e in device_kernels),
+                    top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
+                         for e in device_kernels[:8]])
 
-    profile_forward(predict, "default path", "chip_smoke_profile.txt")
-    profile_forward(predict8, "path B", "chip_smoke_profile_path_b.txt")
+    profile_forward(predict, "default path", image, "chip_smoke_profile.txt")
+    profile_forward(predict8, "path B", image, "chip_smoke_profile_path_b.txt")
     set_routes(model8, routes_b_unfused)
-    profile_forward(predict8, "path B unfused", "chip_smoke_profile_path_b_unfused.txt")
+    profile_forward(predict8, "path B unfused", image, "chip_smoke_profile_path_b_unfused.txt")
+    del model, model8, predict, predict8, evaluator, evaluator_a, evaluator_b
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------- 6. DANet, OCNet
+    attn_models = attention_models(torch, card, dev, defaults, (zero_counts, read_counts),
+                                   profile_forward)
 
     # ------------------------------------------------------------ results
     # per forward of the path that runs the kernel: fused_stem lies on the
@@ -816,6 +1123,8 @@ def main():
         "fused_sepconv_infer_v3_skip": main_b["launches"]["fused_sepconv_infer_v3_skip"],
         "fused_sepconv_infer_v2": main_a["launches"]["fused_sepconv_infer_v2"],
         "fused_sepconv_infer": direct_launches,
+        # the DANet and OCNet-base runs of the Evaluator
+        "flash_attention": attn_models["DANet"]["launches"] + attn_models["OCNet"]["launches"],
     }
     for name, count in launches.items():
         if count < 1:
@@ -824,15 +1133,16 @@ def main():
                 for name, k in entry_kernels.items()}
     measured.update({name: (SEPCONV_SOURCE, SEPCONV_REPLACES[name], sep_results[name]["bfloat16"])
                      for name in SEPCONV_REPLACES})
+    flash_main = next(r["bfloat16"] for r in flash_results.values() if r["bfloat16"]["main"])
+    measured["flash_attention"] = (ATTENTION_SOURCE, ATTENTION_REPLACES, flash_main)
     line = {"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], max_abs_err=m["max_abs_err"], ms=m["ms"],
              plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-             library_ms=None)
+             library_ms=m.get("library_ms"))
         for name, (source, replaces, m) in measured.items()
     ]}
     not_ported = {"kernels_not_ported": [
-        "segmentron_tpu/ops/attention.py:44 (_flash_kernel)",
         "segmentron_tpu/ops/attention.py:161 (_flash_bwd_dq_kernel), :185 (_flash_bwd_dkv_kernel)",
         "tools/ceiling_probe.py:298 (kern)",
     ]}
@@ -843,6 +1153,7 @@ def main():
                "eval": {"default": main_default, "A": main_a, "B": main_b},
                "f32": {**{name: k["float32"] for name, k in entry_kernels.items()},
                        **{name: r["float32"] for name, r in sep_results.items()}},
+               "flash_attention": flash_results, "attention_models": attn_models,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
     print(json.dumps(not_ported))

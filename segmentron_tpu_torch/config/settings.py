@@ -11,6 +11,9 @@ the same defaults, so every ``configs/*.yaml`` loads unchanged. The
 - ``STEM_WBLOCK`` and ``DW_SHIFT`` name exact reformulations of plain
   convolutions for the TPU; PyTorch computes the same math, so they
   have no effect here.
+- ``USE_PALLAS`` routes the spatial attention of DANet and OCNet
+  (``ops/attention.py::spatial_attention``) through the flash-attention
+  kernel where P >= 2048 positions, as in the JAX package.
 - ``USE_PALLAS_SEPCONV`` routes the admitted separable convs through
   the fused kernel (``ops/sepconv.py``); ``INT8_ACTIVATIONS="pw"`` with
   ``INT8_K`` is the int8 serving mode of the separable convs

@@ -10,6 +10,7 @@ from .synthetic import SyntheticSegmentation
 NUM_CLASS = {
     "cityscapes": 19,
     "citys": 19,
+    "coco": 21,
     "synthetic": SyntheticSegmentation.NUM_CLASS,
 }
 

@@ -1,5 +1,5 @@
 from .model_zoo import MODEL_REGISTRY, get_segmentation_model
 from .segbase import SegBaseModel, init_weights
-from . import deeplabv3_plus  # noqa: F401  (registers DeepLabV3_Plus)
+from . import danet, deeplabv3_plus, ocnet  # noqa: F401  (register DANet, DeepLabV3_Plus, OCNet)
 
 __all__ = ["MODEL_REGISTRY", "SegBaseModel", "get_segmentation_model", "init_weights"]

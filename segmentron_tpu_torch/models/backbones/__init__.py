@@ -1,4 +1,4 @@
 from .build import BACKBONE_REGISTRY, get_segmentation_backbone
-from . import xception  # noqa: F401  (registers xception65)
+from . import resnet, xception  # noqa: F401  (register resnet18..152c, xception65)
 
 __all__ = ["BACKBONE_REGISTRY", "get_segmentation_backbone"]

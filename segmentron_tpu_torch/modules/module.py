@@ -1,6 +1,7 @@
 """Segmentation heads (counterpart of ``segmentron_tpu/modules/module.py``):
-``ASPP`` and ``FCNHead``. Dropout is the identity in eval, so the
-port, which runs inference only, has none."""
+``ASPP``, ``FCNHead`` and ``Dropout2d``. Dropout is the identity in eval;
+``FCNHead`` and ``ASPP`` leave theirs out, the DANet and OCNet heads keep
+theirs where the JAX modules have one."""
 
 from __future__ import annotations
 
@@ -13,7 +14,15 @@ from ..ops import global_avg_pool
 from .basic import ConvBNReLU, SeparableConv2d, SepconvRoutes, conv2d
 from .batch_norm import NormConfig
 
-__all__ = ["ASPP", "FCNHead"]
+__all__ = ["ASPP", "Dropout2d", "FCNHead"]
+
+
+class Dropout2d(nn.Dropout2d):
+    """Channel dropout (whole channels of NCHW maps); the identity in eval.
+    ``rate`` is the JAX module's name for ``p``."""
+
+    def __init__(self, rate: float = 0.1):
+        super().__init__(p=rate)
 
 
 class FCNHead(nn.Module):

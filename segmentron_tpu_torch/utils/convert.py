@@ -8,7 +8,8 @@ mechanical: the scope path joined with dots, and per leaf
   becomes ``(C,1,3,3)``); a conv ``bias`` stays ``bias``;
 - BN ``scale``/``bias`` -> ``weight``/``bias`` and ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var``, plus a zero
-  ``num_batches_tracked``.
+  ``num_batches_tracked``;
+- a scalar leaf (DANet's ``gamma``) -> a 0-d parameter of the same name.
 
 It takes plain numpy (nested dicts), so converting needs no JAX; the
 caller does the ``np.asarray`` over the flax tree.
@@ -43,7 +44,10 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         return torch.from_numpy(np.array(tree[scope + (key,)], np.float32))
 
     state: Dict[str, torch.Tensor] = {}
-    for scope in sorted({path[:-1] for path in params}):
+    for path, value in params.items():
+        if np.ndim(value) == 0:
+            state[".".join(path)] = torch.tensor(float(value))
+    for scope in sorted({path[:-1] for path in params if np.ndim(params[path]) > 0}):
         name = ".".join(scope)
         if scope + ("kernel",) in params:
             state[f"{name}.weight"] = leaf(params, scope, "kernel").permute(3, 2, 0, 1).contiguous()
