@@ -23,8 +23,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    exit-flow layer (bf16 / f32 products); the flash-attention forward
    (``ops/attention.py``) at DANet's and OCNet's shapes (P = 32768, and
    the pyramid's N=4/P=8192 and N=9/P=3698) and two small ragged cases,
-   out and lse, beside ``scaled_dot_product_attention``'s time.
-   ``--kernels-only`` stops here;
+   out and lse, beside ``scaled_dot_product_attention``'s time; the
+   flash-attention backward (dq and dk/dv kernels) at DANet's and OCNet's
+   train shapes (N=16, P=5184), the pyramid's N=9/P=3698 and a ragged
+   case, against ``flash_attention_bwd_plain``, beside the backward of
+   ``scaled_dot_product_attention``. ``--kernels-only`` stops here;
 4. model: DeepLabv3+ / Xception-65 (16 middle blocks, 19 classes) from
    the flagship YAML with random weights from a seed, in f32 (TF32
    off). Output stride 16: the fused entry routes ("block1", "stem")
@@ -51,7 +54,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    base through the ``Evaluator`` in bf16 with the counters read around
    it (one launch a forward), the bf16 kernel route's argmax held to the
    f32 reference no worse than the dense route's (-0.005), both routes
-   timed in turns, one profile each; OCNet pyramid's three launches.
+   timed in turns, one profile each; OCNet pyramid's three launches;
+7. DANet and OCNet base training from the COCO-Stuff YAMLs (576x576
+   crops, batch 16, bf16) through ``get_segmentation_loss``,
+   ``get_lr_scheduler``, ``get_optimizer`` and ``make_train_step``: in
+   f32 at batch 2 the kernel route against the dense route (loss,
+   gradients, parameters after the update; a float64 step sets the
+   gradients' bar), bf16 gradients against f32, then the bf16 step at
+   batch 16 with the counters read around it (flash forward, dq and
+   dk/dv once each), steps of both routes in turns, peak memory, the step
+   with ``cudnn.benchmark``, one profile each.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -504,6 +516,148 @@ def check_flash_kernel(torch, attention, card, dev, gen):
     return results
 
 
+# -------------------------------------------------- flash attention backward
+# The train shapes (576x576 crops, output stride 8: c4 72x72, P = 5184, at
+# the YAMLs' batch 16), OCNet pyramid level 3 at 1024x2048, and a small
+# ragged case. ``main``: the line's.
+FLASH_BWD_CASES = [
+    dict(what="DANet PAM, train", n=16, p=5184, dk=64, dv=512, scale=1.0, main=True),
+    dict(what="OCNet base, train", n=16, p=5184, dk=256, dv=512, scale=256 ** -0.5),
+    dict(what="OCNet pyramid level 3", n=9, p=3698, dk=256, dv=512, scale=256 ** -0.5),
+    dict(what="ragged", n=2, p=600, dk=32, dv=128, scale=1.0),
+]
+ATTENTION_BWD_SOURCE = "segmentron_tpu_torch/csrc/attention_bwd.cu"
+ATTENTION_BWD_REPLACES = {
+    "flash_attention_bwd_dq": "segmentron_tpu/ops/attention.py:161 (_flash_bwd_dq_kernel; "
+                              "_attention_pallas_bwd :217, pallas_call :257)",
+    "flash_attention_bwd_dkv": "segmentron_tpu/ops/attention.py:185 (_flash_bwd_dkv_kernel; "
+                               "_attention_pallas_bwd :217, pallas_call :284)",
+}
+
+
+def flash_bwd_bound(case, itemsize, dname, which):
+    """(ms, 'bytes' | 'operations', exp ms) of one pass: the dq pass does
+    q.k^T, do.v^T and ds.k, 2 P^2 (2 Dk + Dv) per image; the dk/dv pass
+    q.k^T, do.v^T, p^T.do and ds^T.q, 2 P^2 (2 Dk + 2 Dv) (the lo halves
+    of the bf16 kernels not counted); q, k, v, do, lse and delta read
+    once, the pass's outputs written once; the P^2 exponentials of a pass
+    on the special-function units, stated beside."""
+    n, p, dk, dv = case["n"], case["p"], case["dk"], case["dv"]
+    out = dk if which == "dq" else dk + dv
+    flops = 2 * n * p * p * (2 * dk + (dv if which == "dq" else 2 * dv))
+    t_ops = flops / PEAK_OPS[dname]
+    t_bytes = (n * p * (2 * dk + 2 * dv + out) * itemsize + 2 * n * p * 4) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * n * p * p / SFU_EXP_PER_S)
+
+
+def sdpa_backward_library(torch, q, k, v, do, scale):
+    """(ms, backend) of the backward of ``F.scaled_dot_product_attention``
+    on the same inputs (one head): forward + backward under autograd less
+    the forward alone, or (None, the reason it refused)."""
+    from torch.nn.attention import SDPBackend
+
+    q4, k4, v4 = (t[:, None].detach().requires_grad_() for t in (q, k, v))
+    do4 = do[:, None]
+    names = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend) if n.isupper()}
+    backend = names.get(int(torch._fused_sdp_choice(q4, k4, v4, scale=scale)), "?")
+
+    def forward():
+        return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+    def forward_backward():
+        torch.autograd.grad(forward(), (q4, k4, v4), do4)
+
+    try:
+        forward_backward()
+    except RuntimeError as e:
+        return None, f"{backend}: refused: {str(e).splitlines()[0][:160]}"
+    both = median_ms(torch, forward_backward, n=10, warmup=2)
+    with torch.no_grad():
+        alone = median_ms(torch, forward, n=10, warmup=2)
+    return both - alone, backend
+
+
+def check_flash_bwd_kernels(torch, attention, card, dev, gen, cases=None):
+    """Every case in f32 and bf16: ``flash_attention_bwd`` (which launches
+    the dq and the dk/dv kernel) against ``flash_attention_bwd_plain`` on
+    the same q, k, v, do, out and lse (out and lse from the forward
+    kernel); times of each kernel alone, the plain backward and the
+    backward of ``scaled_dot_product_attention``.
+
+    Bars, per gradient: f32 max|err| <= 1e-4 max(1, max|ref|) (f32 sums in
+    another order); bf16 max|err| <= 2 bf16 ulps of max|ref| and relative
+    L2 error <= 4e-3 (both round one f32 result to bf16; the kernel's hi/lo
+    products keep ~16 bits of p and ds)."""
+    results = {}
+    for case in cases or FLASH_BWD_CASES:
+        n, p, dk, dv, scale = case["n"], case["p"], case["dk"], case["dv"], case["scale"]
+        for dt in (torch.float32, torch.bfloat16):
+            dname = dtype_name(dt)
+            q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
+            v, do = (torch.randn(n, p, dv, generator=gen).to(dev, dt) for _ in range(2))
+            out, lse = attention.flash_attention(q, k, v, scale)
+            refs = attention.flash_attention_bwd_plain(q, k, v, do, out, lse, scale)
+            before = (attention.flash_attention_bwd_dq.launches,
+                      attention.flash_attention_bwd_dkv.launches)
+            got = attention.flash_attention_bwd(q, k, v, do, out, lse, scale)
+            torch.cuda.synchronize()
+            if (attention.flash_attention_bwd_dq.launches,
+                    attention.flash_attention_bwd_dkv.launches) != (before[0] + 1, before[1] + 1):
+                fail("flash_attention_bwd: the wrappers did not count their launches")
+            errs, ok = {}, True
+            for gname, g, r in zip(("dq", "dk", "dv"), got, refs):
+                if g.shape != r.shape or g.dtype != dt or not torch.isfinite(g.float()).all():
+                    fail(f"flash_attention_bwd {dname} {case['what']}: {gname} of shape "
+                         f"{tuple(g.shape)} {g.dtype} or non-finite")
+                r = r.float()
+                err = (g.float() - r).abs()
+                max_err, max_ref = err.max().item(), r.abs().max().item()
+                rel_l2 = ((g.float() - r).norm() / r.norm().clamp(min=1e-30)).item()
+                if dt == torch.float32:
+                    g_ok = max_err <= 1e-4 * max(1.0, max_ref)
+                else:
+                    ulp = 2.0 ** (math.floor(math.log2(max_ref)) - 7) if max_ref > 0 else 0.0
+                    g_ok = max_err <= 2 * ulp and rel_l2 <= 4e-3
+                ok = ok and g_ok
+                errs[gname] = dict(max_abs_err=max_err, max_ref=max_ref, rel_l2=rel_l2)
+            rule = ("max|err| <= 1e-4 max(1, max|ref|)" if dt == torch.float32
+                    else "max|err| <= 2 bf16 ulps of max|ref|, rel L2 <= 4e-3")
+            lse32, delta = attention._bwd_stats(q, do, out, lse)
+            bufs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+            dq_ms = median_ms(torch, lambda: attention._launch_bwd(
+                "dq", q, k, v, do, lse32, delta, scale, bufs[0]))
+            dkv_ms = median_ms(torch, lambda: attention._launch_bwd(
+                "dkv", q, k, v, do, lse32, delta, scale, bufs[1], bufs[2]))
+            plain_ms = median_ms(torch, lambda: attention.flash_attention_bwd_plain(
+                q, k, v, do, out, lse, scale), n=5, warmup=1)
+            library_ms, backend = sdpa_backward_library(torch, q, k, v, do, scale)
+            lib = "refused" if library_ms is None else f"{library_ms:.4f} ms"
+            print(f"{card} flash_attention_bwd {dname} {case['what']} N={n} P={p} Dk={dk} Dv={dv} "
+                  f"scale={scale:.6g}: " + ", ".join(
+                      f"{g} max|err| {e['max_abs_err']:.6g} (max|ref| {e['max_ref']:.6g}, rel L2 "
+                      f"{e['rel_l2']:.3g})" for g, e in errs.items())
+                  + f" [{rule}: {'ok' if ok else 'FAIL'}]; dq kernel {dq_ms:.4f} ms, dk/dv kernel "
+                  f"{dkv_ms:.4f} ms, plain backward {plain_ms:.4f} ms, scaled_dot_product_attention "
+                  f"backward {lib} ({backend})")
+            if not ok:
+                fail(f"flash_attention_bwd {dname} ({case['what']}) disagrees with its plain version")
+            entry = {}
+            for which, ms, gnames in (("dq", dq_ms, ("dq",)), ("dkv", dkv_ms, ("dk", "dv"))):
+                bound_ms, bound_by, exp_ms = flash_bwd_bound(case, q.element_size(), dname, which)
+                print(f"    {which}: bound {bound_ms:.4f} ms ({bound_by}; exponentials "
+                      f"{exp_ms:.4f} ms), kernel / bound {ms / bound_ms:.2f}")
+                entry[which] = dict(
+                    max_abs_err=max(errs[g]["max_abs_err"] for g in gnames), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, exp_bound_ms=exp_ms,
+                    library_ms=library_ms, library_backend=backend)
+            results.setdefault(case["what"], {})[dname] = dict(
+                entry, errors=errs, shape=[n, p, dk, dv], main=bool(case.get("main")))
+            del q, k, v, do, out, lse, refs, got, bufs, lse32, delta
+        torch.cuda.empty_cache()
+    return results
+
+
 # -------------------------------------------------------------------- model
 def set_routes(model, routes):
     for m in model.modules():
@@ -536,7 +690,8 @@ def gated_launches(torch, model, image, predict):
                 fused_sepconv_infer_v3_skip=0,
                 fused_stem_block1=int(model.backbone._fused_stem_mode(
                     torch.empty((1, 3) + tuple(image.shape[1:3]), device="meta")) == "block1"),
-                fused_stem=0, flash_attention=0)
+                fused_stem=0, flash_attention=0, flash_attention_bwd_dq=0,
+                flash_attention_bwd_dkv=0)
     in_chain = set()
     for m in shapes:
         if isinstance(m, XceptionBlock) and m._fused_chain(meta(m)):
@@ -551,6 +706,16 @@ def gated_launches(torch, model, image, predict):
                 and m._fusable(meta(m))):
             want["fused_sepconv_infer_v2"] += 1
     return want
+
+
+def load_cfg(cfg, defaults, yaml, opts):
+    """``cfg`` as a fresh process has it, then ``yaml`` and ``opts``."""
+    cfg.defrost()
+    cfg.clear()
+    for key, value in type(cfg)(defaults).items():
+        dict.__setitem__(cfg, key, value)
+    cfg.update_from_file(yaml)
+    cfg.update_from_list(opts)
 
 
 def set_attention(model, use_pallas):
@@ -589,12 +754,8 @@ def attention_models(torch, card, dev, defaults, counts, profile_forward):
         return (a == b).float().mean().item()
 
     def build(name, arch="base"):
-        cfg.defrost()
-        cfg.clear()
-        for key, value in type(cfg)(defaults).items():  # as a fresh process has it
-            dict.__setitem__(cfg, key, value)
-        cfg.update_from_file(ATTENTION_MODELS[name])
-        cfg.update_from_list(ATTENTION_OPTS + ["MODEL.OCNet.OC_ARCH", arch])
+        load_cfg(cfg, defaults, ATTENTION_MODELS[name],
+                 ATTENTION_OPTS + ["MODEL.OCNet.OC_ARCH", arch])
         gen = torch.Generator().manual_seed(int(cfg.SEED))
         model = get_segmentation_model(dev, generator=gen)
         with torch.no_grad():
@@ -711,6 +872,331 @@ def attention_models(torch, card, dev, defaults, counts, profile_forward):
     return results
 
 
+# The COCO-Stuff training configs (ResNet-101, output stride 8, multi-grid
+# for DANet, 21 classes, 576x576 crops, batch 16, bf16, SGD at LR 0.003, poly).
+TRAIN_MODELS = {
+    "DANet": "configs/cocostuff_danet_resnet101.yaml",
+    "OCNet": "configs/cocostuff_ocnet_resnet101.yaml",
+}
+TRAIN_ITERS_PER_EPOCH = 100  # sets only the poly schedule's length
+TRAIN_CHECK_BATCH = 2
+
+
+def grad_rel_l2(got, want, floor):
+    """{leaf: ||got - want|| / max(||want||, floor)}."""
+    return {n: ((got[n] - w).norm() / max(w.norm().item(), floor)).item()
+            for n, w in want.items()}
+
+
+def f64_dense_grads(torch, state, images, masks, loss_fn, seed):
+    """Gradients of one dense-route train step of a float64 twin of
+    ``model`` (built anew from the cfg) at the weights ``state``: the same
+    batch and dropout draws, BN with the batch statistics, and the
+    attention and CAM products in float64 (the port's modules take those
+    in f32)."""
+    import torch.nn.functional as F
+
+    from segmentron_tpu_torch.config import cfg
+    from segmentron_tpu_torch.models import danet, get_segmentation_model
+    from segmentron_tpu_torch.ops import attention
+
+    def dense64(q, k, v, scale):
+        return torch.bmm(torch.softmax(torch.bmm(q, k.transpose(1, 2)) * scale, dim=-1), v)
+
+    def cam64(self, x):
+        h, w = x.shape[2:]
+        flat = danet.flatten(x)
+        energy = torch.bmm(flat.transpose(1, 2), flat)
+        attn = torch.softmax(energy.amax(dim=-1, keepdim=True) - energy, dim=-1)
+        return self.gamma * danet.unflatten(torch.bmm(flat, attn.transpose(1, 2)), h, w) + x
+
+    m64 = get_segmentation_model(images.device)
+    m64.load_state_dict(state)
+    m64.double().train()
+    set_attention(m64, False)
+    for m in m64.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.forward = (lambda x, m=m: F.batch_norm(x, None, None, m.weight, m.bias, True, 0.0,
+                                                     m.eps))
+        if hasattr(m, "generator"):
+            m.generator = torch.Generator(device=images.device).manual_seed(seed)
+    real = attention._attention_dense, danet.CAM.forward
+    attention._attention_dense, danet.CAM.forward = dense64, cam64
+    try:
+        mean, std = (torch.tensor(v, device=images.device, dtype=torch.float64)
+                     for v in (cfg.DATASET.MEAN, cfg.DATASET.STD))
+        loss_fn(m64((images.double() / 255 - mean) / std), masks.long()).backward()
+    finally:
+        attention._attention_dense, danet.CAM.forward = real
+    grads = {n: p.grad.float() for n, p in m64.named_parameters()}
+    del m64
+    torch.cuda.empty_cache()
+    return grads
+
+
+def train_models(torch, card, dev, defaults, counts, profile_call):
+    """Phase 7: one train step of DANet and OCNet base from the COCO-Stuff
+    YAMLs at full width through ``get_segmentation_loss`` /
+    ``get_lr_scheduler`` / ``get_optimizer`` / ``make_train_step``, random
+    weights from the seed, ``gamma = GAMMA``, synthetic 576x576 crops.
+
+    In f32 (TF32 off) at batch 2, from the same weights, batch and
+    dropout generator state: the flash route (forward kernel, dq and dk/dv
+    kernels) against the dense route, loss to relative 1e-5, every
+    gradient leaf to relative L2 max(1e-4, a quarter of the dense step's
+    own distance from a float64 step): the train-mode BN of a random
+    ResNet-101 amplifies f32 rounding so far that both f32 steps are
+    several per cent from float64, and the two routes' different
+    summation orders alone then differ by more than 1e-4. Every
+    parameter after the update within that fraction of its update plus
+    one f32 ulp of the parameter; PAM's and the OC block's query/key/value
+    gradients nonzero. In bf16 at the
+    same batch, each route's gradients against the f32 dense step's: the
+    kernel route no further than the dense route x 1.5 + 1e-3 (per leaf,
+    the leaves whose f32 gradient is 0 up to rounding left out).
+    Then the main path in bf16 at the YAML's batch (8 if 16 does not fit):
+    the launch counters set to 0 just before one step and read just after
+    (flash forward, dq and dk/dv once each), 2 warm-up steps and 10 steps
+    of each route in turns (CUDA events), peak memory, 5 more steps with
+    ``torch.backends.cudnn.benchmark`` on, one profiled step.
+
+    A gradient leaf's relative L2 is taken against max(its norm, 1e-6 of
+    the norm of all gradients), and leaves below that are not gated: some
+    gradients are 0 up to rounding (PAM's key bias adds q . b to a whole
+    softmax row; a bias before a training-mode BN is removed by it)."""
+    import numpy as np
+
+    from segmentron_tpu_torch.config import cfg
+    from segmentron_tpu_torch.data.dataloader import SyntheticSegmentation
+    from segmentron_tpu_torch.engine import make_train_step
+    from segmentron_tpu_torch.models import get_segmentation_model
+    from segmentron_tpu_torch.solver import (get_lr_scheduler, get_optimizer,
+                                             get_segmentation_loss)
+
+    zero_counts, read_counts = counts
+    qkv = {"DANet": ("pam.query.", "pam.key.", "pam.value."),
+           "OCNet": ("oc.attn.f_query.", "oc.attn.f_key.", "oc.attn.f_value.")}
+    results = {}
+    for label, yaml in TRAIN_MODELS.items():
+        load_cfg(cfg, defaults, yaml, [])
+        crop, batch = int(cfg.TRAIN.CROP_SIZE), int(cfg.TRAIN.BATCH_SIZE)
+        gen = torch.Generator().manual_seed(int(cfg.SEED))
+        model = get_segmentation_model(dev, generator=gen)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.endswith("gamma"):
+                    p.fill_(GAMMA)
+        state0 = {k: v.clone() for k, v in model.state_dict().items()}
+        data = SyntheticSegmentation(split="train", mode="testval", length=batch,
+                                     image_size=(crop, crop), num_class=model.nclass)
+        pairs = [data[i][:2] for i in range(batch)]
+        images = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+        masks = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+        loss_fn = get_segmentation_loss(
+            cfg.MODEL.MODEL_NAME, use_ohem=cfg.SOLVER.OHEM, aux=cfg.SOLVER.AUX,
+            aux_weight=cfg.SOLVER.AUX_WEIGHT, loss_name=cfg.SOLVER.LOSS_NAME,
+            ohem_thresh=cfg.SOLVER.OHEM_THRESH, ohem_min_kept=cfg.SOLVER.OHEM_MIN_KEPT,
+            multi_loss_weight=list(cfg.MODEL.MULTI_LOSS_WEIGHT))
+
+        def make_step(route, dtype):
+            """A fresh optimizer and train step from the weights of state0."""
+            model.load_state_dict(state0)
+            set_attention(model, route)
+            schedule = get_lr_scheduler(cfg, TRAIN_ITERS_PER_EPOCH)
+            optimizer = get_optimizer(cfg, model, schedule)
+            generator = torch.Generator(device=dev).manual_seed(int(cfg.SEED))
+            return make_train_step(model, loss_fn, optimizer, schedule, compute_dtype=dtype,
+                                   device=dev, generator=generator)
+
+        def one_step(route, dtype, n):
+            step = make_step(route, dtype)
+            loss = step(images[:n], masks[:n]).item()
+            grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+            update = {k: (p.detach() - state0[k]) for k, p in model.named_parameters()}
+            return loss, grads, update
+
+        # ---- f32: the flash route against the dense route
+        torch.backends.cudnn.allow_tf32 = False
+        n2 = TRAIN_CHECK_BATCH
+        zero_counts()
+        loss_k, grads_k, upd_k = one_step(True, "float32", n2)
+        launches32 = read_counts()
+        loss_d, grads_d, upd_d = one_step(False, "float32", n2)
+        floor = 1e-6 * torch.sqrt(sum(g.square().sum() for g in grads_d.values())).item()
+        gated = [n for n, g in grads_d.items() if g.norm().item() >= floor]
+        rel_g = grad_rel_l2(grads_k, grads_d, floor)
+        # how far the f32 dense step itself is from float64, per leaf
+        rel_64 = grad_rel_l2(grads_d, f64_dense_grads(torch, state0, images[:n2],
+                                                      masks[:n2], loss_fn, int(cfg.SEED)), floor)
+        tol = {n: max(1e-4, 0.25 * rel_64[n]) for n in grads_d}
+        over_g = {n: (rel_g[n], tol[n]) for n in gated if rel_g[n] > tol[n]}
+        # params after the update: within tol of the update, one f32 ulp of
+        # the parameter (p - lr g rounds to either neighbour) and, for the
+        # leaves whose gradient is 0 up to rounding, 1e-6 of LR x the largest
+        # gradient
+        lr_max = float(cfg.SOLVER.LR) * float(cfg.SOLVER.DECODER_LR_FACTOR)
+        g_max = max(g.abs().max().item() for g in grads_d.values())
+        rel_u = {n: (upd_k[n] - u).abs().max().item() / (
+                     tol[n] * u.abs().max().item() + 2.0 ** -22 * state0[n].abs().max().item()
+                     + 1e-6 * lr_max * g_max) for n, u in upd_d.items()}
+        worst_g = max(gated, key=lambda n: rel_g[n] / tol[n])
+        worst_u = max(rel_u, key=rel_u.get)
+        qkv_norms = {n: g.norm().item() for n, g in grads_k.items()
+                     if n.startswith(qkv[label]) and g.dim() == 4}  # the conv weights
+        loss_rel = abs(loss_k - loss_d) / abs(loss_d)
+        print(f"{card} train {label} / resnet101, output stride 8, {model.nclass} classes, crop "
+              f"{crop}, f32 step at batch {n2}: loss kernel route {loss_k:.7f}, dense "
+              f"{loss_d:.7f} (rel {loss_rel:.3g}) [<= 1e-5]; gradient leaves {len(gated)} of "
+              f"{len(rel_g)} (the others 0 up to rounding), kernel vs dense rel L2 median "
+              f"{statistics.median(rel_g[n] for n in gated):.3g}, worst against its bar "
+              f"{rel_g[worst_g]:.3g} ({worst_g}; bar {tol[worst_g]:.3g}) [<= max(1e-4, 0.25 x the "
+              f"dense step's own distance from float64, median "
+              f"{statistics.median(rel_64[n] for n in gated):.3g}): {len(over_g)} over]; "
+              f"parameters after the update, worst max|diff| / bar {rel_u[worst_u]:.3g} "
+              f"({worst_u}) [<= 1]; q/k/v weight grad norms "
+              f"{ {n: round(v, 6) for n, v in qkv_norms.items()} } [> 0]; launches {launches32}")
+        if not (math.isfinite(loss_k) and loss_rel <= 1e-5):
+            fail(f"train {label}: f32 loss of the kernel route differs from the dense route's")
+        if over_g or rel_u[worst_u] > 1:
+            fail(f"train {label}: f32 gradients or updates of the kernel route differ from the "
+                 f"dense route's: {dict(list(over_g.items())[:5])}")
+        if len(qkv_norms) != 3 or min(qkv_norms.values()) <= 0:
+            fail(f"train {label}: the attention's query/key/value convs got no gradient")
+        if (launches32["flash_attention"], launches32["flash_attention_bwd_dq"],
+                launches32["flash_attention_bwd_dkv"]) != (1, 1, 1):
+            fail(f"train {label}: f32 step launches {launches32}")
+        torch.backends.cudnn.allow_tf32 = True  # the model's own default from here on
+
+        # ---- bf16 at the same batch: each route against the f32 dense step
+        half_rel = {}
+        for route in (True, False):
+            _, grads_h, _ = one_step(route, cfg.TPU.COMPUTE_DTYPE, n2)
+            half_rel[route] = grad_rel_l2(grads_h, grads_d, floor)
+            del grads_h
+        # leaves whose f32 gradient is 0 up to rounding have nothing for bf16
+        # to approximate: left out of this gate
+        worse = {n: (half_rel[True][n], half_rel[False][n]) for n in gated
+                 if half_rel[True][n] > 1.5 * half_rel[False][n] + 1e-3}
+        worst_h = max(gated, key=half_rel[True].get)
+        print(f"{card} train {label} {cfg.TPU.COMPUTE_DTYPE} step at batch {n2}: gradients vs the "
+              f"f32 dense step, worst leaf rel L2 kernel route {half_rel[True][worst_h]:.4g} "
+              f"({worst_h}; dense route {half_rel[False][worst_h]:.4g}), median kernel "
+              f"{statistics.median(half_rel[True].values()):.4g} dense "
+              f"{statistics.median(half_rel[False].values()):.4g} [kernel <= 1.5 dense + 1e-3 per "
+              f"leaf, {len(gated)} of {len(grads_d)} leaves: {len(worse)} over]")
+        if worse:
+            fail(f"train {label}: bf16 kernel route's gradients further from f32 than the dense "
+                 f"route's: {dict(list(worse.items())[:5])}")
+        del grads_k, grads_d, upd_k, upd_d
+
+        # ---- the main path: bf16 at the YAML's batch
+        steps = {}
+        cut = None
+        for n in (batch, batch // 2):
+            try:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                steps[True] = make_step(True, cfg.TPU.COMPUTE_DTYPE)
+                zero_counts()
+                loss = steps[True](images[:n], masks[:n]).item()
+                launches = read_counts()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                break
+            except torch.cuda.OutOfMemoryError:
+                cut = f"batch {n} did not fit the card; cut to {n // 2}"
+                print(f"{card} train {label}: {cut}")
+                steps.clear()
+        else:
+            fail(f"train {label}: batch {batch // 2} does not fit the card either")
+        want = dict(flash_attention=1, flash_attention_bwd_dq=1, flash_attention_bwd_dkv=1)
+        print(f"{card} train {label} {cfg.TPU.COMPUTE_DTYPE} step at batch {n}: loss {loss:.6f}, "
+              f"launches {launches}, peak memory {peak / 2**30:.3f} GiB")
+        if {k: launches[k] for k in want} != want or any(
+                v for k, v in launches.items() if k not in want):
+            fail(f"train {label}: launches in one step {launches}, want {want}")
+        if not math.isfinite(loss):
+            fail(f"train {label}: non-finite loss")
+        # dense route: same weights, its own optimizer; then turns
+        step_ms = {True: [], False: []}
+        peak_route = {True: peak, False: 0}
+        losses = {True: [], False: []}
+        for route in (True, False):
+            if route is False:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                steps[False] = make_step(False, cfg.TPU.COMPUTE_DTYPE)
+            set_attention(model, route)
+            for _ in range(2):  # warm-up
+                losses[route].append(steps[route](images[:n], masks[:n]).item())
+            torch.cuda.synchronize()
+            if route is False:
+                peak_route[False] = torch.cuda.max_memory_allocated()
+        for rnd in range(2):
+            for route in ((True, False) if rnd == 0 else (False, True)):
+                set_attention(model, route)
+                for _ in range(5):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = steps[route](images[:n], masks[:n])
+                    end.record()
+                    end.synchronize()
+                    step_ms[route].append(start.elapsed_time(end))
+                    losses[route].append(out.item())
+        if not all(math.isfinite(v) for vs in losses.values() for v in vs):
+            fail(f"train {label}: non-finite loss in the timed steps")
+        ms = {route: statistics.median(v) for route, v in step_ms.items()}
+        print(f"{card} train {label} {cfg.TPU.COMPUTE_DTYPE} step, batch {n} of {crop}x{crop}, "
+              f"ms (img/s), median of 10 in turns: kernel route {ms[True]:.3f} "
+              f"({1e3 * n / ms[True]:.2f}) {[round(v, 3) for v in step_ms[True]]}, dense route "
+              f"{ms[False]:.3f} ({1e3 * n / ms[False]:.2f}) {[round(v, 3) for v in step_ms[False]]}; "
+              f"peak memory kernel {peak_route[True] / 2**30:.3f} GiB, dense "
+              f"{peak_route[False] / 2**30:.3f} GiB; losses kernel "
+              f"{[round(v, 4) for v in losses[True]]}")
+        set_attention(model, True)
+        # the same step with cuDNN's algorithms timed instead of picked by
+        # its heuristics (not the port's setting; a measurement for the next
+        # lever: the heuristics pick a slow direct kernel for some dilated
+        # convolutions)
+        torch.backends.cudnn.benchmark = True
+        for _ in range(2):
+            steps[True](images[:n], masks[:n])
+        bench_ms = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            steps[True](images[:n], masks[:n])
+            end.record()
+            end.synchronize()
+            bench_ms.append(start.elapsed_time(end))
+        torch.backends.cudnn.benchmark = False
+        print(f"{card} train {label} kernel route with cudnn.benchmark: median of 5 "
+              f"{statistics.median(bench_ms):.3f} ms {[round(v, 3) for v in bench_ms]}")
+        profile = profile_call(lambda: steps[True](images[:n], masks[:n]),
+                               f"train step {label} kernel route, batch {n}",
+                               f"chip_smoke_profile_train_{label.lower()}.txt")
+        results[label] = dict(
+            batch=n, cut=cut, crop=crop, loss_f32=dict(kernel=loss_k, dense=loss_d),
+            worst_grad_rel_l2_f32=[worst_g, rel_g[worst_g], tol[worst_g]],
+            median_grad_rel_l2_f32=statistics.median(rel_g[n] for n in gated),
+            median_f32_vs_f64_rel_l2=statistics.median(rel_64[n] for n in gated),
+            worst_param_diff_over_bar_f32=[worst_u, rel_u[worst_u]], qkv_grad_norms=qkv_norms,
+            bf16_grad_rel_l2_median=dict(kernel=statistics.median(half_rel[True].values()),
+                                         dense=statistics.median(half_rel[False].values())),
+            launches=launches, step_ms=ms[True], img_per_s=1e3 * n / ms[True],
+            dense_step_ms=ms[False], dense_img_per_s=1e3 * n / ms[False],
+            cudnn_benchmark_step_ms=statistics.median(bench_ms),
+            rounds={"kernel": step_ms[True], "dense": step_ms[False]},
+            peak_memory_gib={"kernel": peak_route[True] / 2**30,
+                             "dense": peak_route[False] / 2**30},
+            profile=profile)
+        del model, steps, state0, images, masks
+        torch.cuda.empty_cache()
+    return results
+
+
 def probe(torch, card):
     """Cycle shares of the fused separable conv's phases (see the
     module's docstring)."""
@@ -798,6 +1284,8 @@ def main():
         "fused_stem": entrychain.fused_stem,
         **{name: getattr(sepconv, name) for name in SEPCONV_REPLACES},
         "flash_attention": attention.flash_attention,
+        "flash_attention_bwd_dq": attention.flash_attention_bwd_dq,
+        "flash_attention_bwd_dkv": attention.flash_attention_bwd_dkv,
     }
 
     def zero_counts():
@@ -807,10 +1295,12 @@ def main():
     def read_counts():
         return {name: fn.launches for name, fn in wrappers.items()}
 
+    flash_bwd_results = check_flash_bwd_kernels(torch, attention, card, dev, gen)
     flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)
     if "--kernels-only" in sys.argv[1:]:
-        print(json.dumps({"sepconv": sep_results, "flash_attention": flash_results}))
+        print(json.dumps({"sepconv": sep_results, "flash_attention": flash_results,
+                          "flash_attention_bwd": flash_bwd_results}))
         print(f"kernels only: {time.perf_counter() - t_start:.1f} s")
         return 0
     entry_kernels = check_entry_kernels(torch, entrychain, card, dev, gen)
@@ -1072,26 +1562,25 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_forward(fn, label, image, path):
-        with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        ) as prof:
+    def profile_call(thunk, label, path):
+        """Kernel time by name and the device's idle share of one call of
+        ``thunk`` under ``torch.profiler`` (table written to ``path``)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn(image)
+            thunk()
             torch.cuda.synchronize()
             window_us = 1e6 * (time.perf_counter() - t0)
         averages = prof.key_averages()
         table = averages.table(sort_by="self_device_time_total", row_limit=40)
         with open(os.path.join(OUT_DIR, path), "w") as f:
-            f.write(f"{card} one forward, {label}, {cfg.TPU.COMPUTE_DTYPE}, "
-                    f"1x{SHAPE[1]}x{SHAPE[2]}\n")
+            f.write(f"{card} {label}\n")
             f.write(table)
         device_kernels = sorted((e for e in averages if e.device_type == DeviceType.CUDA),
                                 key=lambda e: e.self_device_time_total, reverse=True)
         device_us = sum(e.self_device_time_total for e in device_kernels)
-        print(f"{card} profile of one forward, {label}: kernels {device_us / 1e3:.3f} ms of "
-              f"a {window_us / 1e3:.3f} ms window (device idle share "
+        print(f"{card} profile of {label}: kernels {device_us / 1e3:.3f} ms of a "
+              f"{window_us / 1e3:.3f} ms window (device idle share "
               f"{1 - device_us / window_us:.4f}), {sum(e.count for e in device_kernels)} "
               f"launches; top kernels by device time:")
         for e in device_kernels[:12]:
@@ -1101,6 +1590,11 @@ def main():
                     launches=sum(e.count for e in device_kernels),
                     top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
                          for e in device_kernels[:8]])
+
+    def profile_forward(fn, label, image, path):
+        with torch.inference_mode():
+            return profile_call(lambda: fn(image), f"one forward, {label}, "
+                                f"{cfg.TPU.COMPUTE_DTYPE}, 1x{SHAPE[1]}x{SHAPE[2]}", path)
 
     profile_forward(predict, "default path", image, "chip_smoke_profile.txt")
     profile_forward(predict8, "path B", image, "chip_smoke_profile_path_b.txt")
@@ -1112,6 +1606,9 @@ def main():
     # ----------------------------------------------------- 6. DANet, OCNet
     attn_models = attention_models(torch, card, dev, defaults, (zero_counts, read_counts),
                                    profile_forward)
+
+    # ------------------------------------------------- 7. DANet, OCNet train
+    train = train_models(torch, card, dev, defaults, (zero_counts, read_counts), profile_call)
 
     # ------------------------------------------------------------ results
     # per forward of the path that runs the kernel: fused_stem lies on the
@@ -1125,6 +1622,9 @@ def main():
         "fused_sepconv_infer": direct_launches,
         # the DANet and OCNet-base runs of the Evaluator
         "flash_attention": attn_models["DANet"]["launches"] + attn_models["OCNet"]["launches"],
+        # one bf16 train step each of DANet and OCNet base
+        **{name: sum(t["launches"][name] for t in train.values())
+           for name in ATTENTION_BWD_REPLACES},
     }
     for name, count in launches.items():
         if count < 1:
@@ -1135,6 +1635,9 @@ def main():
                      for name in SEPCONV_REPLACES})
     flash_main = next(r["bfloat16"] for r in flash_results.values() if r["bfloat16"]["main"])
     measured["flash_attention"] = (ATTENTION_SOURCE, ATTENTION_REPLACES, flash_main)
+    bwd_main = next(r["bfloat16"] for r in flash_bwd_results.values() if r["bfloat16"]["main"])
+    for name, replaces in ATTENTION_BWD_REPLACES.items():
+        measured[name] = (ATTENTION_BWD_SOURCE, replaces, bwd_main[name.rsplit("_", 1)[1]])
     line = {"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], max_abs_err=m["max_abs_err"], ms=m["ms"],
@@ -1142,10 +1645,7 @@ def main():
              library_ms=m.get("library_ms"))
         for name, (source, replaces, m) in measured.items()
     ]}
-    not_ported = {"kernels_not_ported": [
-        "segmentron_tpu/ops/attention.py:161 (_flash_bwd_dq_kernel), :185 (_flash_bwd_dkv_kernel)",
-        "tools/ceiling_probe.py:298 (kern)",
-    ]}
+    not_ported = {"kernels_not_ported": ["tools/ceiling_probe.py:298 (kern)"]}
     summary = {"card": smi, "forward_ms": fwd_ms, "img_per_s": 1e3 / fwd_ms,
                "plain_entry_forward_ms": plain_fwd_ms, "path_forward_ms": path_ms,
                "argmax_agreement_f32": agree32, "argmax_agreement_bf16_vs_f32": agree16,
@@ -1153,7 +1653,8 @@ def main():
                "eval": {"default": main_default, "A": main_a, "B": main_b},
                "f32": {**{name: k["float32"] for name, k in entry_kernels.items()},
                        **{name: r["float32"] for name, r in sep_results.items()}},
-               "flash_attention": flash_results, "attention_models": attn_models,
+               "flash_attention": flash_results, "flash_attention_bwd": flash_bwd_results,
+               "attention_models": attn_models, "train": train,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
     print(json.dumps(not_ported))

@@ -24,8 +24,18 @@ the same defaults, so every ``configs/*.yaml`` loads unchanged. The
   (``INT8_CALIBRATE``, ``INT8_CALIBRATION_BATCHES > 0``) are not ported
   yet: a model or an evaluator built with one of them set raises
   ``NotImplementedError``.
-- The mesh, pipeline, training and TPU compiler keys are accepted and
-  not read.
+- Training (``solver/``, ``engine/steps.py::make_train_step``) reads
+  ``SOLVER.OPTIMIZER``, ``LR``, ``MOMENTUM``, ``WEIGHT_DECAY``,
+  ``EPSILON``, ``DECODER_LR_FACTOR``, ``LR_SCHEDULER`` with ``POLY``,
+  ``STEP`` and ``WARMUP``, ``OHEM`` with its threshold and ``min_kept``,
+  ``AUX_WEIGHT`` and ``LOSS_NAME`` (mixed CE and OHEM are ported; focal,
+  lovasz and dice raise), ``MODEL.MULTI_LOSS_WEIGHT``, ``TRAIN.EPOCHS``
+  (the schedule's length), ``SEED`` (the dropout generator) and
+  ``TPU.REMAT``, of which only "none" is ported ("dots" and "full"
+  raise). ``SOLVER.AUX`` is read by the models (their aux outputs).
+- The other ``TRAIN`` keys (batch, crop, paths, checkpointing), the
+  mesh, pipeline and TPU compiler keys are accepted and not read: the
+  trainer, its data transforms and checkpointing are not ported yet.
 """
 
 import time

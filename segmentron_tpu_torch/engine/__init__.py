@@ -1,4 +1,4 @@
 from .evaluator import Evaluator
-from .steps import make_predict_fn
+from .steps import make_predict_fn, make_train_step
 
-__all__ = ["Evaluator", "make_predict_fn"]
+__all__ = ["Evaluator", "make_predict_fn", "make_train_step"]

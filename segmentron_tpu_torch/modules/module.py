@@ -1,7 +1,7 @@
 """Segmentation heads (counterpart of ``segmentron_tpu/modules/module.py``):
 ``ASPP``, ``FCNHead`` and ``Dropout2d``. Dropout is the identity in eval;
-``FCNHead`` and ``ASPP`` leave theirs out, the DANet and OCNet heads keep
-theirs where the JAX modules have one."""
+``FCNHead`` and the DANet and OCNet heads keep theirs where the JAX modules
+have one; ``ASPP`` leaves its out (DeepLabv3+ does not train yet)."""
 
 from __future__ import annotations
 
@@ -17,26 +17,42 @@ from .batch_norm import NormConfig
 __all__ = ["ASPP", "Dropout2d", "FCNHead"]
 
 
-class Dropout2d(nn.Dropout2d):
-    """Channel dropout (whole channels of NCHW maps); the identity in eval.
-    ``rate`` is the JAX module's name for ``p``."""
+class Dropout2d(nn.Module):
+    """Channel dropout, as the JAX module: in training each (sample,
+    channel) of an NCHW map is kept with probability ``1 - rate`` (a mask
+    of shape (N, C, 1, 1)) and the kept ones are scaled by
+    ``1 / (1 - rate)``; the identity in eval. The mask is drawn from
+    ``generator`` (on the input's device), which the train step sets to
+    its own seeded ``torch.Generator``; None draws from torch's default
+    generator."""
 
     def __init__(self, rate: float = 0.1):
-        super().__init__(p=rate)
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class FCNHead(nn.Module):
-    """3x3 ConvBNReLU -> 1x1 classifier with bias."""
+    """3x3 ConvBNReLU -> dropout -> 1x1 classifier with bias."""
 
     def __init__(self, in_channels: int, nclass: int, channels: Optional[int] = None,
                  norm: NormConfig = NormConfig()):
         super().__init__()
         inter = channels or in_channels // 4
         self.block = ConvBNReLU(in_channels, inter, 3, norm=norm)
+        self.dropout = Dropout2d(0.1)
         self.classifier = conv2d(inter, nclass, 1, 1, 0, bias=True)
 
     def forward(self, x):
-        return self.classifier(self.block(x))
+        return self.classifier(self.dropout(self.block(x)))
 
 
 class ASPP(nn.Module):

@@ -14,10 +14,23 @@ q_i . k_j) v_j``. The layout is the JAX package's, ``(N, P, C)``.
   function in plain PyTorch with the kernel's roundings (``p`` cast to
   ``v.dtype`` before the product). ``flash_attention.launches`` counts
   kernel launches.
+- ``flash_attention_bwd``: the backward, two hand-written CUDA kernels
+  (``csrc/attention_bwd.cu``) that replace the Pallas kernels
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``
+  (``_attention_pallas_bwd``): dq, then dk and dv, recomputed from the
+  saved lse, never holding the affinity. ``delta = rowsum(do * o)`` is
+  taken here in f32, as the JAX package takes it outside Pallas. For a
+  CUDA tensor it launches both kernels or raises; for a CPU tensor it
+  computes ``flash_attention_bwd_plain``. ``flash_attention_bwd_dq`` and
+  ``flash_attention_bwd_dkv`` are the two launches, each with its count
+  ``.launches``.
+- ``FlashAttention``: the autograd function of the flash route (forward
+  ``flash_attention``, backward ``flash_attention_bwd``), the counterpart
+  of the custom VJP ``_attention_pallas_diff``.
 
-On an H100 the kernel is bound by operations: at DANet's shape (P 32768,
-Dk 64, Dv 512) 1.237 TFLOP, 1.25 ms at the bf16 tensor-core peak; its
-design is described in the source.
+On an H100 the kernels are bound by operations: at DANet's shape (P 32768,
+Dk 64, Dv 512) the forward does 1.237 TFLOP, 1.25 ms at the bf16
+tensor-core peak; the sources describe their designs and bounds.
 """
 
 from __future__ import annotations
@@ -29,7 +42,12 @@ import torch
 from .kernels import library
 
 __all__ = [
+    "FlashAttention",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_plain",
     "flash_attention_plain",
     "spatial_attention",
 ]
@@ -67,6 +85,32 @@ def flash_attention_plain(q, k, v, scale: float, block_k: int = 4096):
     return out, lse
 
 
+def flash_attention_bwd_plain(q, k, v, do, o, lse, scale: float, block_q: int = 512,
+                              block_k: int = 512):
+    """Plain PyTorch version of ``flash_attention_bwd``, the JAX
+    package's math: ``delta = rowsum(do * o)``, then per (query block,
+    key block) ``p = exp(scale q k^T - lse)``, ``dp = do v^T``,
+    ``ds = p (dp - delta)``, ``dq += scale ds k``, ``dk += scale ds^T q``,
+    ``dv += p^T do``; everything in f32 from inputs cast to f32, the
+    results cast to q's, k's and v's dtypes at the end. It never holds
+    more than ``block_q x block_k`` of the affinity per batch entry."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    lse = lse.float().unsqueeze(-1)
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    p = q.shape[1]
+    for i in range(0, p, block_q):
+        qi, doi = qf[:, i:i + block_q], dof[:, i:i + block_q]
+        for j in range(0, p, block_k):
+            kj, vj = kf[:, j:j + block_k], vf[:, j:j + block_k]
+            pij = torch.exp(torch.bmm(qi, kj.transpose(1, 2)) * scale - lse[:, i:i + block_q])
+            ds = pij * (torch.bmm(doi, vj.transpose(1, 2)) - delta[:, i:i + block_q])
+            dq[:, i:i + block_q] += torch.bmm(ds, kj) * scale
+            dk[:, j:j + block_k] += torch.bmm(ds.transpose(1, 2), qi) * scale
+            dv[:, j:j + block_k] += torch.bmm(pij.transpose(1, 2), doi)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _lib():
     lib = library("attention")
     ptr, i = ctypes.c_void_p, ctypes.c_int
@@ -76,10 +120,25 @@ def _lib():
     return lib
 
 
-def _check(q, k, v):
-    if not (q.device == k.device == v.device) or q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported devices {q.device}, {k.device}, "
-                         f"{v.device}")
+def _lib_bwd():
+    lib = library("attention_bwd")
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_dq_launch.argtypes = [ptr] * 7 + [i, i, i, i, f, i, ptr]
+    lib.flash_attention_bwd_dkv_launch.argtypes = [ptr] * 8 + [i, i, i, i, f, i, ptr]
+    lib.flash_attention_bwd_dq_launch.restype = i
+    lib.flash_attention_bwd_dkv_launch.restype = i
+    return lib
+
+
+def _check(q, k, v, *more):
+    """Raise for inputs the kernels do not take; ``more`` are further
+    tensors of v's shape and dtype (the backward's do and o)."""
+    if (not all(t.device == q.device for t in (k, v, *more))
+            or q.device.type != "cuda"):
+        raise ValueError(f"flash_attention: unsupported devices "
+                         f"{[str(t.device) for t in (q, k, v, *more)]}")
+    if any(t.shape != v.shape or t.dtype != v.dtype or not t.is_contiguous() for t in more):
+        raise ValueError("flash_attention: do and o must be contiguous, of v's shape and dtype")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention: q, k, v must share one dtype of float32 and "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -94,6 +153,12 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k and v must be contiguous")
 
 
+def _raise_rc(name, rc):
+    if rc != 0:
+        what = "unsupported shape" if rc == -1 else f"CUDA error {rc}"
+        raise RuntimeError(f"{name}: {what}")
+
+
 def _launch(q, k, v, scale, out, lse):
     """One launch of the kernel into ``out`` and ``lse`` (no checks, no
     count)."""
@@ -104,9 +169,22 @@ def _launch(q, k, v, scale, out, lse):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             n, p, dk, v.shape[-1], float(scale), int(q.dtype == torch.bfloat16), stream,
         )
-    if rc != 0:
-        what = "unsupported shape" if rc == -1 else f"CUDA error {rc}"
-        raise RuntimeError(f"flash_attention_launch: {what}")
+    _raise_rc("flash_attention_launch", rc)
+
+
+def _launch_bwd(which, q, k, v, do, lse, delta, scale, *outs):
+    """One launch of the backward kernel ``which`` ("dq": outs = (dq,);
+    "dkv": outs = (dk, dv)); no checks, no count."""
+    n, p, dk = q.shape
+    name = f"flash_attention_bwd_{which}_launch"
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(_lib_bwd(), name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in outs), n, p, dk, v.shape[-1],
+            float(scale), int(q.dtype == torch.bfloat16), stream,
+        )
+    _raise_rc(name, rc)
 
 
 def flash_attention(q, k, v, scale: float):
@@ -126,12 +204,71 @@ def flash_attention(q, k, v, scale: float):
 flash_attention.launches = 0
 
 
+def _bwd_stats(q, do, o, lse):
+    """(lse, delta = rowsum(do * o)) as contiguous (N, P) f32."""
+    if lse.shape != q.shape[:2]:
+        raise ValueError(f"flash_attention_bwd: lse of shape {tuple(lse.shape)}")
+    return lse.float().contiguous(), (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
+    """dq (N, P, Dk) in q's dtype: the dq kernel, one launch (CUDA
+    tensors that ``_check`` admits; lse, delta contiguous (N, P) f32)."""
+    dq = torch.empty_like(q)
+    _launch_bwd("dq", q, k, v, do, lse, delta, scale, dq)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
+    """(dk, dv) in k's and v's dtype: the dk/dv kernel, one launch."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("dkv", q, k, v, do, lse, delta, scale, dk, dv)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, do, o, lse, scale: float):
+    """q, k (N, P, Dk), v, do and the forward's out o (N, P, Dv), lse
+    (N, P) f32 -> (dq, dk, dv) in q's, k's and v's dtypes."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, do, o, lse, scale)
+    _check(q, k, v, do, o)
+    lse, delta = _bwd_stats(q, do, o, lse)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash route with its gradient: forward ``flash_attention``
+    (saving q, k, v, out and lse, as ``_attention_pallas_diff_fwd``
+    does), backward ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do.contiguous(), out, lse, ctx.scale)
+        return dq, dk, dv, None
+
+
 def spatial_attention(q, k, v, scale: float = 1.0, use_pallas: bool = False,
                       min_seq_for_pallas: int = 2048):
     """q, k (N, P, Dk), v (N, P, Dv) -> (N, P, Dv) in ``v.dtype``. The
     JAX package's gate less its backend check: with ``use_pallas`` and
     P >= ``min_seq_for_pallas`` the flash route (the kernel on a CUDA
-    tensor, its plain version on the CPU), else the dense one."""
+    tensor, its plain version on the CPU), else the dense one. Both are
+    differentiable: the flash route through ``FlashAttention``."""
     if use_pallas and q.shape[1] >= min_seq_for_pallas:
-        return flash_attention(q, k, v, float(scale))[0]
+        return FlashAttention.apply(q, k, v, float(scale))
     return _attention_dense(q, k, v, float(scale))

@@ -24,7 +24,7 @@ __all__ = ["DEFINES", "SOURCES", "build", "library"]
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("entrychain", "sepconv", "attention")
+SOURCES = ("entrychain", "sepconv", "attention", "attention_bwd")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
