@@ -27,7 +27,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
    flash-attention backward (dq and dk/dv kernels) at DANet's and OCNet's
    train shapes (N=16, P=5184), the pyramid's N=9/P=3698 and a ragged
    case, against ``flash_attention_bwd_plain``, beside the backward of
-   ``scaled_dot_product_attention``. ``--kernels-only`` stops here;
+   ``scaled_dot_product_attention``;
+3b. the ceiling probe (``segmentron_tpu_torch/tools/ceiling_probe.py``):
+   its kernel ``probe_dot`` against ``probe_dot_plain`` at (8192, 728),
+   (8192, 768) and the ragged (300, 40, 72) and (129, 33, 17), int8
+   bitwise and bf16 within one bf16 ulp (plus the f32 rounding of K
+   products), beside the bound, the plain version and the library
+   (``torch._int_mm``, ``torch.matmul``);
+   then every probe mode once through the tool's functions at full shapes,
+   ``CP_TARGET`` 4e11 and ``CP_ITERS`` 3, the counters zeroed around each:
+   ``pallas_dot`` launches the kernel once warm and once a captured
+   iteration, ``flagship`` the fused entry kernel. ``--kernels-only``
+   stops here;
 4. model: DeepLabv3+ / Xception-65 (16 middle blocks, 19 classes) from
    the flagship YAML with random weights from a seed, in f32 (TF32
    off). Output stride 16: the fused entry routes ("block1", "stem")
@@ -115,7 +126,10 @@ def fail(msg):
     sys.exit(1)
 
 
-def median_ms(torch, fn, n=20, warmup=3):
+def median_ms(torch, fn, n=20, warmup=3, hide_launch=False):
+    """Median ms of ``fn`` between two CUDA events. ``hide_launch``: the
+    card spins before the first event while the host enqueues ``fn``, so
+    that a call of a few microseconds is not timed with its launch."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -123,6 +137,8 @@ def median_ms(torch, fn, n=20, warmup=3):
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hide_launch:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -691,7 +707,7 @@ def gated_launches(torch, model, image, predict):
                 fused_stem_block1=int(model.backbone._fused_stem_mode(
                     torch.empty((1, 3) + tuple(image.shape[1:3]), device="meta")) == "block1"),
                 fused_stem=0, flash_attention=0, flash_attention_bwd_dq=0,
-                flash_attention_bwd_dkv=0)
+                flash_attention_bwd_dkv=0, probe_dot=0)  # no model runs probe_dot
     in_chain = set()
     for m in shapes:
         if isinstance(m, XceptionBlock) and m._fused_chain(meta(m)):
@@ -708,12 +724,17 @@ def gated_launches(torch, model, image, predict):
     return want
 
 
-def load_cfg(cfg, defaults, yaml, opts):
-    """``cfg`` as a fresh process has it, then ``yaml`` and ``opts``."""
+def reset_cfg(cfg, defaults):
+    """``cfg`` as a fresh process has it."""
     cfg.defrost()
     cfg.clear()
     for key, value in type(cfg)(defaults).items():
         dict.__setitem__(cfg, key, value)
+
+
+def load_cfg(cfg, defaults, yaml, opts):
+    """``cfg`` as a fresh process has it, then ``yaml`` and ``opts``."""
+    reset_cfg(cfg, defaults)
     cfg.update_from_file(yaml)
     cfg.update_from_list(opts)
 
@@ -1197,6 +1218,132 @@ def train_models(torch, card, dev, defaults, counts, profile_call):
     return results
 
 
+# ------------------------------------------------ the ceiling probe's kernel
+PROBE_DOT_SOURCE = "segmentron_tpu_torch/csrc/probe_dot.cu"
+PROBE_DOT_REPLACES = "tools/ceiling_probe.py:287 (kern; pallas_dot :262, pallas_call :298)"
+# (M, K, N): the probe's two shapes and two ragged ones (K not a multiple of
+# the mma's depth, N not of the tile, M not of the block; the last with rows
+# of an odd byte count, copied a byte at a time). The line's entry: int8 at
+# C = 728, the probe's first case.
+PROBE_DOT_CASES = [(8192, 728, 728), (8192, 768, 768), (300, 40, 72), (129, 33, 17)]
+PROBE_ITERS = "3"      # CP_ITERS of the probe's model chains here
+PROBE_TARGET = "4e11"  # CP_TARGET: a tenth of the tool's default
+
+
+def probe_dot_bound(m, k, n, dname, itemsize):
+    """(ms, 'bytes' | 'operations'): x and w read once, out written once."""
+    t_ops = 2 * m * k * n / PEAK_OPS[dname]
+    t_bytes = (m * k + k * n + m * n) * itemsize / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_probe_dot(torch, probe_dot, card, dev, gen):
+    """Each case in int8 and bf16, the probe's input distributions: the
+    wrapper (which launches the kernel) against ``probe_dot_plain`` on the
+    card, int8 bitwise, bf16 within one bf16 ulp plus the f32 rounding of
+    K products (K 2^-24 sum|x w|: two f32 summation orders differ by up to
+    that near zero, where a bf16 ulp is tiny); times of the kernel alone,
+    the plain version and the library (``torch._int_mm`` + shift + cast,
+    ``torch.matmul`` with a bf16 output)."""
+    results = {}
+    for m, k, n in PROBE_DOT_CASES:
+        for dt in (torch.int8, torch.bfloat16):
+            dname = dtype_name(dt)
+            if dt == torch.int8:
+                x = torch.randint(-127, 127, (m, k), generator=gen).to(dev, dt)
+                w = torch.randint(-8, 8, (k, n), generator=gen).to(dev, dt)
+
+                def library(x=x, w=w):
+                    return (torch._int_mm(x, w) >> 7).to(torch.int8)
+            else:
+                x = torch.randn(m, k, generator=gen).to(dev, dt)
+                w = (torch.randn(k, n, generator=gen) * 0.03).to(dev, dt)
+
+                def library(x=x, w=w):
+                    return torch.matmul(x, w)
+            ref = probe_dot.probe_dot_plain(x, w)
+            before = probe_dot.probe_dot.launches
+            got = probe_dot.probe_dot(x, w)
+            torch.cuda.synchronize()
+            if probe_dot.probe_dot.launches != before + 1:
+                fail("probe_dot: the wrapper did not count its launch")
+            if got.shape != ref.shape or got.dtype != dt:
+                fail(f"probe_dot {dname} ({m}, {k}, {n}): {tuple(got.shape)} {got.dtype}")
+            err = (got.float() - ref.float()).abs()
+            max_err = err.max().item()
+            if dt == torch.int8:
+                shifted = (x.double() @ w.double()).div(128).floor()
+                wrapped = ((shifted < -128) | (shifted > 127)).double()
+                ok = torch.equal(got, ref)
+                note = f"bitwise: {ok}; {wrapped.mean().item():.4f} of the outputs wrapped"
+            else:
+                r = ref.float()
+                ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126))) - 7)
+                sums = x.float().abs() @ w.float().abs()
+                ok = bool((err <= ulp + k * 2.0 ** -24 * sums).all())
+                beyond = int((err > ulp).sum())
+                note = (f"within one bf16 ulp + K 2^-24 sum|x w|: {ok}; {beyond} of {err.numel()}"
+                        f" beyond one ulp")
+            out = torch.empty_like(got)
+            kernel_ms = median_ms(torch, lambda: probe_dot._launch(x, w, out), hide_launch=True)
+            plain_ms = median_ms(torch, lambda: probe_dot.probe_dot_plain(x, w), hide_launch=True)
+            try:
+                library_ms, lib = median_ms(torch, library, hide_launch=True), None
+            except RuntimeError as e:  # cuBLASLt refuses some int8 shapes
+                library_ms, lib = None, f"refused: {str(e).splitlines()[0][:120]}"
+            if dt == torch.int8 and library_ms is not None:
+                # the product alone, w as given and w column-major, the layout
+                # cuBLASLt's int8 kernels want (the ceiling probe's int8 modes give it)
+                wc = w.t().contiguous().t()
+                row_ms = median_ms(torch, lambda: torch._int_mm(x, w), hide_launch=True)
+                col_ms = median_ms(torch, lambda: torch._int_mm(x, wc), hide_launch=True)
+                lib = (f"{library_ms:.4f} ms (the product alone: w row-major {row_ms:.4f} "
+                       f"ms, column-major {col_ms:.4f} ms)")
+            bound_ms, bound_by = probe_dot_bound(m, k, n, dname, x.element_size())
+            print(f"{card} probe_dot {dname} ({m}, {k}) x ({k}, {n}): max|err| {max_err:.6g} "
+                  f"[{note}]; kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"{lib or f'{library_ms:.4f} ms'}, bound {bound_ms:.4f} ms ({bound_by})")
+            if not ok:
+                fail(f"probe_dot {dname} ({m}, {k}, {n}) disagrees with its plain version")
+            results[f"{dname}_{m}x{k}x{n}"] = dict(
+                max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            del x, w, ref, got, err, out
+    return results
+
+
+def probe_modes(torch, card, cfg, defaults, counts):
+    """Every mode of the port's ceiling probe once, through the tool's own
+    functions at full shapes, ``CP_TARGET`` and ``CP_ITERS`` reduced; the
+    launch counters set to 0 before each mode and read after it. Returns
+    ({mode: its JSON line}, {mode: launches})."""
+    from segmentron_tpu_torch.tools import ceiling_probe
+
+    zero_counts, read_counts = counts
+    os.environ["CP_TARGET"] = PROBE_TARGET
+    os.environ["CP_ITERS"] = PROBE_ITERS
+    lines, launches = {}, {}
+    for mode, run in ceiling_probe.MODES.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        lines[mode] = run()
+        seconds = time.perf_counter() - t0
+        launches[mode] = {k: v for k, v in read_counts().items() if v}
+        print(f"{card} ceiling probe {mode}: {seconds:.1f} s, launches {launches[mode]}")
+        if any(isinstance(v, str) and v.startswith("fail") for v in
+               (lines[mode].get("r") or {}).values()):
+            fail(f"ceiling probe {mode}: {lines[mode]}")
+    want = sum(1 + ceiling_probe.chain_iters(2 * 8192 * c * c)
+               for _, c in ceiling_probe.PALLAS_DOT_CASES)
+    if launches["pallas_dot"].get("probe_dot", 0) != want:
+        fail(f"pallas_dot launched probe_dot {launches['pallas_dot']} times, not {want} "
+             f"(a warm launch and one a captured iteration, each case)")
+    if launches["flagship"].get("fused_stem_block1", 0) < 1:
+        fail(f"flagship launched no fused_stem_block1: {launches['flagship']}")
+    reset_cfg(cfg, defaults)
+    return lines, launches
+
+
 def probe(torch, card):
     """Cycle shares of the fused separable conv's phases (see the
     module's docstring)."""
@@ -1241,7 +1388,7 @@ def main():
     from segmentron_tpu_torch.engine import Evaluator, make_predict_fn
     from segmentron_tpu_torch.models import get_segmentation_model
     from segmentron_tpu_torch.modules import SepconvRoutes
-    from segmentron_tpu_torch.ops import attention, entrychain, sepconv
+    from segmentron_tpu_torch.ops import attention, entrychain, probe_dot, sepconv
     from segmentron_tpu_torch.ops.kernels import BUILD_DIR, SOURCES, build
 
     if "segmentron_tpu" in sys.modules or "jax" in sys.modules:
@@ -1286,6 +1433,7 @@ def main():
         "flash_attention": attention.flash_attention,
         "flash_attention_bwd_dq": attention.flash_attention_bwd_dq,
         "flash_attention_bwd_dkv": attention.flash_attention_bwd_dkv,
+        "probe_dot": probe_dot.probe_dot,
     }
 
     def zero_counts():
@@ -1298,9 +1446,17 @@ def main():
     flash_bwd_results = check_flash_bwd_kernels(torch, attention, card, dev, gen)
     flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)
+
+    # --------------------------------------------------- 3b. ceiling probe
+    probe_dot_results = check_probe_dot(torch, probe_dot, card, dev, gen)
+    torch.cuda.empty_cache()
+    probe_lines, probe_launches = probe_modes(torch, card, cfg, defaults,
+                                              (zero_counts, read_counts))
+    torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:
         print(json.dumps({"sepconv": sep_results, "flash_attention": flash_results,
-                          "flash_attention_bwd": flash_bwd_results}))
+                          "flash_attention_bwd": flash_bwd_results,
+                          "probe_dot": probe_dot_results, "ceiling_probe": probe_lines}))
         print(f"kernels only: {time.perf_counter() - t_start:.1f} s")
         return 0
     entry_kernels = check_entry_kernels(torch, entrychain, card, dev, gen)
@@ -1625,6 +1781,8 @@ def main():
         # one bf16 train step each of DANet and OCNet base
         **{name: sum(t["launches"][name] for t in train.values())
            for name in ATTENTION_BWD_REPLACES},
+        # the ceiling probe's pallas_dot mode
+        "probe_dot": probe_launches["pallas_dot"]["probe_dot"],
     }
     for name, count in launches.items():
         if count < 1:
@@ -1638,6 +1796,8 @@ def main():
     bwd_main = next(r["bfloat16"] for r in flash_bwd_results.values() if r["bfloat16"]["main"])
     for name, replaces in ATTENTION_BWD_REPLACES.items():
         measured[name] = (ATTENTION_BWD_SOURCE, replaces, bwd_main[name.rsplit("_", 1)[1]])
+    measured["probe_dot"] = (PROBE_DOT_SOURCE, PROBE_DOT_REPLACES,
+                             probe_dot_results["int8_8192x728x728"])
     line = {"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], max_abs_err=m["max_abs_err"], ms=m["ms"],
@@ -1645,7 +1805,6 @@ def main():
              library_ms=m.get("library_ms"))
         for name, (source, replaces, m) in measured.items()
     ]}
-    not_ported = {"kernels_not_ported": ["tools/ceiling_probe.py:298 (kern)"]}
     summary = {"card": smi, "forward_ms": fwd_ms, "img_per_s": 1e3 / fwd_ms,
                "plain_entry_forward_ms": plain_fwd_ms, "path_forward_ms": path_ms,
                "argmax_agreement_f32": agree32, "argmax_agreement_bf16_vs_f32": agree16,
@@ -1655,9 +1814,9 @@ def main():
                        **{name: r["float32"] for name, r in sep_results.items()}},
                "flash_attention": flash_results, "flash_attention_bwd": flash_bwd_results,
                "attention_models": attn_models, "train": train,
+               "probe_dot": probe_dot_results, "ceiling_probe": probe_lines,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
-    print(json.dumps(not_ported))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
