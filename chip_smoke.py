@@ -30,10 +30,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``scaled_dot_product_attention``;
 3b. the ceiling probe (``segmentron_tpu_torch/tools/ceiling_probe.py``):
    its kernel ``probe_dot`` against ``probe_dot_plain`` at (8192, 728),
-   (8192, 768) and the ragged (300, 40, 72) and (129, 33, 17), int8
-   bitwise and bf16 within one bf16 ulp (plus the f32 rounding of K
-   products), beside the bound, the plain version and the library
-   (``torch._int_mm``, ``torch.matmul``);
+   (8192, 768), the ragged (300, 40, 72) and (129, 33, 17) and the deep
+   (520, 1000, 200), int8 bitwise and bf16 within one bf16 ulp (plus the
+   f32 rounding of K products), beside the bound, the plain version and
+   the library (``torch._int_mm``, ``torch.matmul``); each case's route
+   (wgmma or mma.sync, TMA or cp.async) as the source picks it, held to
+   its mirror ``ops/probe_dot.py::plan``, and ptxas's registers and spills
+   of each kernel specialisation;
    then every probe mode once through the tool's functions at full shapes,
    ``CP_TARGET`` 4e11 and ``CP_ITERS`` 3, the counters zeroed around each:
    ``pallas_dot`` launches the kernel once warm and once a captured
@@ -82,6 +85,9 @@ its last line ``{"ok": true, "device": {...}}``.
 ``--probe`` does none of this: it builds ``csrc/sepconv.cu`` with its
 clock64 probe and prints, for each main sepconv case in bf16, the share
 of a block's cycles that the taps, the products and the epilogue take.
+``--probe-dot`` neither: it times ``csrc/probe_dot.cu`` and its probe
+builds, each with a phase left out, at the probe's two shapes, and prints
+the median phase stamps of a traced launch.
 """
 
 import dataclasses
@@ -1223,9 +1229,12 @@ PROBE_DOT_SOURCE = "segmentron_tpu_torch/csrc/probe_dot.cu"
 PROBE_DOT_REPLACES = "tools/ceiling_probe.py:287 (kern; pallas_dot :262, pallas_call :298)"
 # (M, K, N): the probe's two shapes and two ragged ones (K not a multiple of
 # the mma's depth, N not of the tile, M not of the block; the last with rows
-# of an odd byte count, copied a byte at a time). The line's entry: int8 at
-# C = 728, the probe's first case.
-PROBE_DOT_CASES = [(8192, 728, 728), (8192, 768, 768), (300, 40, 72), (129, 33, 17)]
+# of an odd byte count, copied a byte at a time), which take both producers
+# (TMA, cp.async) in both types; the last case takes int8's mma.sync route
+# (K > 768) and a bf16 K loop of 16 stages. The line's entry: int8 at C = 728,
+# the probe's first case.
+PROBE_DOT_CASES = [(8192, 728, 728), (8192, 768, 768), (300, 40, 72), (129, 33, 17),
+                   (520, 1000, 200)]
 PROBE_ITERS = "3"      # CP_ITERS of the probe's model chains here
 PROBE_TARGET = "4e11"  # CP_TARGET: a tenth of the tool's default
 
@@ -1237,6 +1246,24 @@ def probe_dot_bound(m, k, n, dname, itemsize):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def print_ptxas(card, name):
+    """Registers, shared memory and spills of each kernel specialisation of
+    ``csrc/<name>.cu``, from ptxas's report of the build."""
+    import re
+
+    from segmentron_tpu_torch.ops.kernels import _target
+
+    fn = None
+    for ln in _target(name).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            # the mangled name's kernel and its template argument (Lb1E: int8)
+            m = re.search(r"\d(probe_dot_(?:wgmma|mma_sync))(?:ILb([01])E)?", ln)
+            arg = m and m.group(2) and ("<int8>" if m.group(2) == "1" else "<bf16>")
+            fn = m.group(1) + (arg or "") if m else ln
+        elif fn and ("registers" in ln or "spill" in ln):
+            print(f"{card} ptxas {name} {fn}: {ln.split(':', 1)[-1].strip()}")
+
+
 def check_probe_dot(torch, probe_dot, card, dev, gen):
     """Each case in int8 and bf16, the probe's input distributions: the
     wrapper (which launches the kernel) against ``probe_dot_plain`` on the
@@ -1246,6 +1273,7 @@ def check_probe_dot(torch, probe_dot, card, dev, gen):
     the plain version and the library (``torch._int_mm`` + shift + cast,
     ``torch.matmul`` with a bf16 output)."""
     results = {}
+    print_ptxas(card, "probe_dot")
     for m, k, n in PROBE_DOT_CASES:
         for dt in (torch.int8, torch.bfloat16):
             dname = dtype_name(dt)
@@ -1261,6 +1289,12 @@ def check_probe_dot(torch, probe_dot, card, dev, gen):
 
                 def library(x=x, w=w):
                     return torch.matmul(x, w)
+            route = probe_dot.kernel_plan(x, w)
+            mirror = probe_dot.plan(m, k, n, dt == torch.int8, x.data_ptr(), w.data_ptr(),
+                                    torch.cuda.get_device_properties(0).multi_processor_count)
+            print(f"{card} probe_dot {dname} ({m}, {k}, {n}) route: {route}")
+            if any(mirror[key] != v for key, v in route.items()):
+                fail(f"probe_dot: ops/probe_dot.py::plan {mirror} is not the kernel's {route}")
             ref = probe_dot.probe_dot_plain(x, w)
             before = probe_dot.probe_dot.launches
             got = probe_dot.probe_dot(x, w)
@@ -1307,7 +1341,8 @@ def check_probe_dot(torch, probe_dot, card, dev, gen):
                 fail(f"probe_dot {dname} ({m}, {k}, {n}) disagrees with its plain version")
             results[f"{dname}_{m}x{k}x{n}"] = dict(
                 max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, route=route["route"],
+                producer=route["producer"])
             del x, w, ref, got, err, out
     return results
 
@@ -1376,6 +1411,84 @@ def probe(torch, card):
     return 0
 
 
+# Probe builds of csrc/probe_dot.cu (--probe-dot): each leaves a phase out.
+PROBE_DOT_BUILDS = {
+    "full": (),
+    "no stores": ("-DPROBE_DOT_NO_EPILOGUE",),
+    "loads only": ("-DPROBE_DOT_NO_EPILOGUE", "-DPROBE_DOT_NO_MMA"),
+    "x loads only": ("-DPROBE_DOT_NO_EPILOGUE", "-DPROBE_DOT_NO_MMA", "-DPROBE_DOT_NO_STRIPE"),
+    "empty": ("-DPROBE_DOT_EMPTY",),
+}
+TRACE_PHASES = ("start", "init", "stripe", "full0", "mma0", "epi0", "full1", "mma1", "epi1",
+                "end")
+
+
+def probe_dot_breakdown(torch, card):
+    """Where ``probe_dot``'s time goes at the probe's two shapes: the kernel
+    and its probe builds (``PROBE_DOT_BUILDS``, wrong results, times only)
+    timed in turns as ``check_probe_dot`` times it, beside the library; then
+    one launch of the ``-DPROBE_DOT_TRACE`` build, whose blocks stamp the
+    globaltimer at each phase: the median over blocks, us from the first
+    block's start."""
+    import ctypes
+
+    import numpy as np
+
+    from segmentron_tpu_torch.ops import kernels, probe_dot
+
+    libs = {}
+    for name, flags in {**PROBE_DOT_BUILDS, "trace": ("-DPROBE_DOT_TRACE",)}.items():
+        kernels.DEFINES["probe_dot"] = flags
+        kernels._loaded.pop("probe_dot", None)
+        libs[name] = probe_dot._lib()
+    libs["trace"].probe_dot_trace.argtypes = [ctypes.c_void_p]
+    gen, dev = torch.Generator().manual_seed(0), torch.device("cuda")
+    one = torch.zeros(1, device=dev)
+    fill_ms = median_ms(torch, lambda: one.fill_(1.0), hide_launch=True)
+    print(f"{card} probe_dot breakdown: a one-element fill_ takes {1e3 * fill_ms:.2f} us "
+          f"between the same events (the floor of any launch)")
+    for m, k, n in PROBE_DOT_CASES[:2]:
+        for dt in (torch.int8, torch.bfloat16):
+            if dt == torch.int8:
+                x = torch.randint(-127, 127, (m, k), generator=gen).to(dev, dt)
+                w = torch.randint(-8, 8, (k, n), generator=gen).to(dev, dt)
+                wc = w.t().contiguous().t()  # column-major, as cuBLASLt's int8 path wants
+                lib_fn = lambda: torch._int_mm(x, wc)  # noqa: E731
+            else:
+                x = torch.randn(m, k, generator=gen).to(dev, dt)
+                w = (torch.randn(k, n, generator=gen) * 0.03).to(dev, dt)
+                lib_fn = lambda: torch.matmul(x, w)  # noqa: E731
+            out = torch.empty(m, n, dtype=dt, device=dev)
+            times = {}
+            for name in [*PROBE_DOT_BUILDS, *reversed(PROBE_DOT_BUILDS)]:
+                kernels._loaded["probe_dot"] = libs[name]
+                times.setdefault(name, []).append(
+                    median_ms(torch, lambda: probe_dot._launch(x, w, out), hide_launch=True))
+            lib_ms = median_ms(torch, lib_fn, hide_launch=True)
+            print(f"{card} probe_dot {dtype_name(dt)} ({m}, {k}, {n}) "
+                  f"{probe_dot.kernel_plan(x, w)['producer']}: " + ", ".join(
+                      f"{name} {1e3 * statistics.mean(t):.2f} us" for name, t in times.items())
+                  + f"; library {1e3 * lib_ms:.2f} us")
+            kernels._loaded["probe_dot"] = libs["trace"]
+            stamps = np.zeros((1024, len(TRACE_PHASES)), np.uint64)
+            torch.cuda._sleep(2_000_000)
+            probe_dot._launch(x, w, out)
+            torch.cuda.synchronize()
+            if libs["trace"].probe_dot_trace(stamps.ctypes.data) != 0:
+                fail("probe_dot_trace failed")
+            b = stamps[:probe_dot.kernel_plan(x, w)["grid"]].astype(np.int64)
+            t0 = b[:, 0].min()
+            phases = {name: float(np.median(b[b[:, i] >= t0, i] - t0)) / 1e3
+                      for i, name in enumerate(TRACE_PHASES)
+                      if (b[:, i] >= t0).any() and name != "start"}
+            print(f"{card} probe_dot {dtype_name(dt)} ({m}, {k}, {n}) trace, median us: "
+                  + ", ".join(f"{name} {v:.2f}" for name, v in phases.items()))
+            stamps[:] = 0
+    kernels.DEFINES.pop("probe_dot", None)
+    kernels._loaded.pop("probe_dot", None)
+    return 0
+
+
 def main():
     import torch
 
@@ -1408,6 +1521,8 @@ def main():
     print(f"card: {smi}")
     if "--probe" in sys.argv[1:]:
         return probe(torch, card)
+    if "--probe-dot" in sys.argv[1:]:
+        return probe_dot_breakdown(torch, card)
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()

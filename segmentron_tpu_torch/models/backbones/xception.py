@@ -180,6 +180,8 @@ def _folded(conv_w: torch.Tensor, bn) -> Tuple[torch.Tensor, ...]:
 
 
 class Xception65(nn.Module):
+    channels = (128, 256, 728, 2048)  # of the taps c1..c4, which the heads read
+
     def __init__(self, output_stride: int = 16, middle_blocks: int = 16,
                  norm: NormConfig = NormConfig(), fused_stem="block1",
                  routes: SepconvRoutes = SepconvRoutes()):

@@ -29,15 +29,16 @@ class DeepLabV3Plus(SegBaseModel):
                  routes: SepconvRoutes = SepconvRoutes()):
         super().__init__(nclass, backbone, aux, encoder_norm, decoder_norm)
         norm = self.decoder_norm
+        c1, _, c3, c4 = self.backbone.channels
         self.enable_decoder = enable_decoder
         self.decoder_sep = decoder_sep
         rates = (12, 24, 36) if output_stride == 8 else (6, 12, 18)
         if use_aspp:
-            self.head = ASPP(2048, 256, rates, separable=aspp_sep, norm=norm, routes=routes)
+            self.head = ASPP(c4, 256, rates, separable=aspp_sep, norm=norm, routes=routes)
         else:
-            self.head = ConvBNReLU(2048, 256, 3, norm=norm)
+            self.head = ConvBNReLU(c4, 256, 3, norm=norm)
         if enable_decoder:
-            self.c1_proj = ConvBNReLU(128, 48, 1, padding=0, norm=norm)
+            self.c1_proj = ConvBNReLU(c1, 48, 1, padding=0, norm=norm)
             for i, cin in enumerate((256 + 48, 256)):
                 if decoder_sep:
                     layer = SeparableConv2d(cin, 256, 3, norm=norm, relu_first=False,
@@ -47,7 +48,7 @@ class DeepLabV3Plus(SegBaseModel):
                 setattr(self, f"decoder{i}", layer)
         self.classifier = conv2d(256, nclass, 1, 1, 0, bias=True)
         if aux:
-            self.auxlayer = FCNHead(728, nclass, norm=norm)
+            self.auxlayer = FCNHead(c3, nclass, norm=norm)
 
     def forward(self, x):
         """(N, H, W, 3) -> ((N, H, W, nclass), [aux])."""

@@ -1,7 +1,7 @@
 """Segmentation heads (counterpart of ``segmentron_tpu/modules/module.py``):
 ``ASPP``, ``FCNHead`` and ``Dropout2d``. Dropout is the identity in eval;
-``FCNHead`` and the DANet and OCNet heads keep theirs where the JAX modules
-have one; ``ASPP`` leaves its out (DeepLabv3+ does not train yet)."""
+``ASPP``, ``FCNHead`` and the DANet and OCNet heads keep theirs where the
+JAX modules have one."""
 
 from __future__ import annotations
 
@@ -58,11 +58,13 @@ class FCNHead(nn.Module):
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: a 1x1 branch, three 3x3 atrous
     branches (separable by default, ReLU after), and an image-pooling
-    branch broadcast back over the map; concatenated and projected."""
+    branch broadcast back over the map; concatenated, projected, and
+    channel-dropped at ``dropout`` in training."""
 
     def __init__(self, in_channels: int, out_channels: int = 256,
                  atrous_rates: Sequence[int] = (6, 12, 18), separable: bool = True,
-                 norm: NormConfig = NormConfig(), routes: SepconvRoutes = SepconvRoutes()):
+                 norm: NormConfig = NormConfig(), routes: SepconvRoutes = SepconvRoutes(),
+                 dropout: float = 0.5):
         super().__init__()
         self.separable = separable
         self.b0 = ConvBNReLU(in_channels, out_channels, 1, padding=0, norm=norm)
@@ -78,6 +80,7 @@ class ASPP(nn.Module):
         self.project = ConvBNReLU(
             out_channels * (len(atrous_rates) + 2), out_channels, 1, padding=0, norm=norm
         )
+        self.dropout = Dropout2d(dropout)
 
     def forward(self, x):
         branches = [self.b0(x)]
@@ -87,4 +90,4 @@ class ASPP(nn.Module):
         pooled = self.image_pool(global_avg_pool(x))
         branches.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
         y = torch.cat(branches, dim=1)
-        return self.project(y)
+        return self.dropout(self.project(y))

@@ -16,6 +16,16 @@ raises; for a CPU tensor it computes ``probe_dot_plain``.
 ``probe_dot.launches`` counts kernel launches. At the probe's shape,
 (8192, 728) x (728, 728), the kernel is bound by operations on an H100:
 4.39 us in int8, 8.78 us in bf16 at the dense tensor-core peaks.
+
+Two routes in the one source, picked on the host from the shapes: the
+``wgmma`` route (every shape but int8 with K > 768), a persistent grid of
+128 x 192 tiles fed by a TMA or a cp.async producer warpgroup, and the
+kernel's first, ``mma.sync`` version for int8 deeper than the resident
+stripe of w holds.
+``plan`` is that choice of route, producer, tiles and grid, the mirror of
+``probe_dot_plan`` in the source (``chip_smoke.py`` holds the two equal on
+the card; ``kernel_plan`` asks the source); ``block_tiles`` the output
+tiles a block walks.
 """
 
 from __future__ import annotations
@@ -26,9 +36,55 @@ import torch
 
 from .kernels import library
 
-__all__ = ["probe_dot", "probe_dot_plain"]
+__all__ = ["block_tiles", "kernel_plan", "plan", "probe_dot", "probe_dot_plain"]
 
 _DTYPES = (torch.int8, torch.bfloat16)
+WGMMA_TILE = (128, 192)   # (BM, BN) of the wgmma route
+MMA_SYNC_TILE = (128, 128)
+MAX_S8_DEPTH = 768        # int8 K the resident stripe of w holds
+H100_SMS = 132
+
+
+def _copy_width(addr, row_bytes):
+    """The widest cp.async (16, 8 or 4 bytes) dividing a row's bytes and
+    the base address, else 1 (byte by byte)."""
+    for v in (16, 8, 4):
+        if row_bytes % v == 0 and addr % v == 0:
+            return v
+    return 1
+
+
+def plan(m, k, n, int8, x_addr=0, w_addr=0, sms=H100_SMS):
+    """The launch's route for x (m, k) and w (k, n) at these base
+    addresses, as ``probe_dot_plan`` picks it: ``route`` "wgmma" (every
+    shape but int8 with K > 768, whose transposed stripe of w would not
+    fit beside the ring) or "mma.sync"; ``producer`` "tma" where x's rows
+    (and bf16 w's) are multiples of 16 bytes on 16-byte aligned bases,
+    else "cp.async"; the tile, the column and row tile counts, ``per``
+    blocks a column stripe (the wgmma grid is persistent: at most one
+    block an SM) and the grid; ``vec_a``/``vec_b`` the cp.async widths."""
+    es = 1 if int8 else 2
+    wgmma = not int8 or k <= MAX_S8_DEPTH
+    vec_a, vec_b = _copy_width(x_addr, k * es), _copy_width(w_addr, n * es)
+    bm, bn = WGMMA_TILE if wgmma else MMA_SYNC_TILE
+    n_tiles, m_tiles = -(-n // bn), -(-m // bm)
+    tma = wgmma and vec_a == 16 and (int8 or vec_b == 16)
+    per = min(max(sms // n_tiles, 1), m_tiles) if wgmma else 1
+    return dict(route="wgmma" if wgmma else "mma.sync",
+                producer="tma" if tma else "cp.async",
+                tile=(bm, bn), n_tiles=n_tiles, m_tiles=m_tiles, per=per,
+                grid=n_tiles * per if wgmma else n_tiles * m_tiles, vec_a=vec_a, vec_b=vec_b)
+
+
+def block_tiles(p, block):
+    """(row, column) origins of the output tiles block ``block`` of plan
+    ``p`` computes: the wgmma route's block j of column stripe s walks row
+    tiles j, j + per, ...; the mma.sync route's block owns one tile."""
+    bm, bn = p["tile"]
+    if p["route"] == "mma.sync":
+        return [(block // p["n_tiles"] * bm, block % p["n_tiles"] * bn)]
+    stripe, first = divmod(block, p["per"])
+    return [(t * bm, stripe * bn) for t in range(first, p["m_tiles"], p["per"])]
 
 
 def probe_dot_plain(x, w):
@@ -49,7 +105,24 @@ def _lib():
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.probe_dot_launch.argtypes = [ptr, ptr, ptr, i, i, i, i, ptr]
     lib.probe_dot_launch.restype = i
+    lib.probe_dot_plan.argtypes = [ptr, ptr, i, i, i, i, i, ptr]
+    lib.probe_dot_plan.restype = i
     return lib
+
+
+def kernel_plan(x, w):
+    """The source's own ``probe_dot_plan`` for these operands on the
+    current device, in ``plan``'s keys (loads the library)."""
+    (m, k), n = x.shape, w.shape[1]
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(x.device):
+        rc = _lib().probe_dot_plan(x.data_ptr(), w.data_ptr(), m, n, k,
+                                   int(x.dtype == torch.int8), 0, out)
+    if rc != 0:
+        raise RuntimeError("probe_dot_plan: unsupported shape")
+    route, tma, n_tiles, m_tiles, per, grid, vec_a, vec_b = out
+    return dict(route="wgmma" if route else "mma.sync", producer="tma" if tma else "cp.async",
+                n_tiles=n_tiles, m_tiles=m_tiles, per=per, grid=grid, vec_a=vec_a, vec_b=vec_b)
 
 
 def _check(x, w):
