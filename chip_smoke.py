@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--kernels-only | --probe]
+    python3 chip_smoke.py [--kernels-only | --probe | --probe-dot | --flash-bwd
+                           | --flash-bwd-probe]
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -27,7 +28,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    flash-attention backward (dq and dk/dv kernels) at DANet's and OCNet's
    train shapes (N=16, P=5184), the pyramid's N=9/P=3698 and a ragged
    case, against ``flash_attention_bwd_plain``, beside the backward of
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``; in f32 beside two bounds, split TF32
+   (three TF32 products for each, the kernels' arithmetic) and CUDA-core
+   FMA;
 3b. the ceiling probe (``segmentron_tpu_torch/tools/ceiling_probe.py``):
    its kernel ``probe_dot`` against ``probe_dot_plain`` at (8192, 728),
    (8192, 768), the ragged (300, 40, 72) and (129, 33, 17) and the deep
@@ -88,6 +91,18 @@ of a block's cycles that the taps, the products and the epilogue take.
 ``--probe-dot`` neither: it times ``csrc/probe_dot.cu`` and its probe
 builds, each with a phase left out, at the probe's two shapes, and prints
 the median phase stamps of a traced launch.
+``--flash-bwd`` neither: the rehearsal after an edit of
+``csrc/attention_bwd.cu``. It builds that source alone, prints ptxas's
+registers and spills of each kernel, and runs phase 3's flash-backward
+check (both dtypes, every case; out and lse from the plain forward, so
+``csrc/attention.cu`` is not built); ``--baseline=<path>`` adds, at each
+case in f32, the dq and dk/dv kernels of another ``attention_bwd.cu``
+(built beside it; the C interface is the same) timed against this
+source's in turns (old, new, new, old). Any failure exits non-zero.
+``--flash-bwd-probe`` times the f32 kernels' probe builds
+(``FLASH_BWD_BUILDS``: wrong results, times only) in turns at the train
+shapes, prints their SASS opcode counts and the card's ``mma.sync``
+m16n8k8 tf32 rate.
 """
 
 import dataclasses
@@ -106,6 +121,7 @@ PATH_B = ["MODEL.OUTPUT_STRIDE", "8", "TPU.INT8_ACTIVATIONS", "pw",
 SHAPE = (1, 1024, 2048, 3)
 # H100 SXM dense peaks; f32 on the CUDA cores
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_TF32 = 495e12  # dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 OUT_DIR = "chiprun_out"
 SEPCONV_SOURCE = "segmentron_tpu_torch/csrc/sepconv.cu"
@@ -558,19 +574,27 @@ ATTENTION_BWD_REPLACES = {
 
 
 def flash_bwd_bound(case, itemsize, dname, which):
-    """(ms, 'bytes' | 'operations', exp ms) of one pass: the dq pass does
-    q.k^T, do.v^T and ds.k, 2 P^2 (2 Dk + Dv) per image; the dk/dv pass
-    q.k^T, do.v^T, p^T.do and ds^T.q, 2 P^2 (2 Dk + 2 Dv) (the lo halves
-    of the bf16 kernels not counted); q, k, v, do, lse and delta read
-    once, the pass's outputs written once; the P^2 exponentials of a pass
-    on the special-function units, stated beside."""
+    """Bounds of one pass: {"ms", "bound_by" ('bytes' | 'operations'),
+    "exp_ms"} and, in f32, "fma_ms" beside. The dq pass does q.k^T, do.v^T
+    and ds.k, 2 P^2 (2 Dk + Dv) per image; the dk/dv pass q.k^T, do.v^T,
+    p^T.do and ds^T.q, 2 P^2 (2 Dk + 2 Dv) (the lo halves of the bf16
+    kernels not counted); q, k, v, do, lse and delta read once, the pass's
+    outputs written once; the P^2 exponentials of a pass on the
+    special-function units, stated beside. In f32 "ms" is the split-TF32
+    bound, three TF32 products for each at the TF32 peak (the kernels'
+    arithmetic), and "fma_ms" the CUDA cores' at the f32 FMA peak."""
     n, p, dk, dv = case["n"], case["p"], case["dk"], case["dv"]
     out = dk if which == "dq" else dk + dv
     flops = 2 * n * p * p * (2 * dk + (dv if which == "dq" else 2 * dv))
-    t_ops = flops / PEAK_OPS[dname]
     t_bytes = (n * p * (2 * dk + 2 * dv + out) * itemsize + 2 * n * p * 4) / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            1e3 * n * p * p / SFU_EXP_PER_S)
+    f32 = dname == "float32"
+    t_ops = 3 * flops / PEAK_TF32 if f32 else flops / PEAK_OPS[dname]
+    bound = dict(ms=1e3 * max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 exp_ms=1e3 * n * p * p / SFU_EXP_PER_S)
+    if f32:
+        bound["fma_ms"] = 1e3 * max(flops / PEAK_OPS[dname], t_bytes)
+    return bound
 
 
 def sdpa_backward_library(torch, q, k, v, do, scale):
@@ -600,12 +624,12 @@ def sdpa_backward_library(torch, q, k, v, do, scale):
     return both - alone, backend
 
 
-def check_flash_bwd_kernels(torch, attention, card, dev, gen, cases=None):
+def check_flash_bwd_kernels(torch, attention, card, dev, gen, cases=None, forward=None):
     """Every case in f32 and bf16: ``flash_attention_bwd`` (which launches
     the dq and the dk/dv kernel) against ``flash_attention_bwd_plain`` on
-    the same q, k, v, do, out and lse (out and lse from the forward
-    kernel); times of each kernel alone, the plain backward and the
-    backward of ``scaled_dot_product_attention``.
+    the same q, k, v, do, out and lse (out and lse from ``forward``, the
+    forward kernel unless given); times of each kernel alone, the plain
+    backward and the backward of ``scaled_dot_product_attention``.
 
     Bars, per gradient: f32 max|err| <= 1e-4 max(1, max|ref|) (f32 sums in
     another order); bf16 max|err| <= 2 bf16 ulps of max|ref| and relative
@@ -618,7 +642,7 @@ def check_flash_bwd_kernels(torch, attention, card, dev, gen, cases=None):
             dname = dtype_name(dt)
             q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
             v, do = (torch.randn(n, p, dv, generator=gen).to(dev, dt) for _ in range(2))
-            out, lse = attention.flash_attention(q, k, v, scale)
+            out, lse = (forward or attention.flash_attention)(q, k, v, scale)
             refs = attention.flash_attention_bwd_plain(q, k, v, do, out, lse, scale)
             before = (attention.flash_attention_bwd_dq.launches,
                       attention.flash_attention_bwd_dkv.launches)
@@ -666,18 +690,221 @@ def check_flash_bwd_kernels(torch, attention, card, dev, gen, cases=None):
                 fail(f"flash_attention_bwd {dname} ({case['what']}) disagrees with its plain version")
             entry = {}
             for which, ms, gnames in (("dq", dq_ms, ("dq",)), ("dkv", dkv_ms, ("dk", "dv"))):
-                bound_ms, bound_by, exp_ms = flash_bwd_bound(case, q.element_size(), dname, which)
-                print(f"    {which}: bound {bound_ms:.4f} ms ({bound_by}; exponentials "
-                      f"{exp_ms:.4f} ms), kernel / bound {ms / bound_ms:.2f}")
+                bound = flash_bwd_bound(case, q.element_size(), dname, which)
+                fma = f", FMA bound {bound['fma_ms']:.4f} ms" if "fma_ms" in bound else ""
+                print(f"    {which}: bound {bound['ms']:.4f} ms ({bound['bound_by']}"
+                      f"{'; split TF32' if fma else ''}; exponentials {bound['exp_ms']:.4f} ms)"
+                      f"{fma}, kernel / bound {ms / bound['ms']:.2f}")
                 entry[which] = dict(
                     max_abs_err=max(errs[g]["max_abs_err"] for g in gnames), ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, exp_bound_ms=exp_ms,
-                    library_ms=library_ms, library_backend=backend)
+                    plain_ms=plain_ms, bound_ms=bound["ms"], bound_by=bound["bound_by"],
+                    exp_bound_ms=bound["exp_ms"], library_ms=library_ms, library_backend=backend)
+                if fma:
+                    entry[which]["fma_bound_ms"] = bound["fma_ms"]
             results.setdefault(case["what"], {})[dname] = dict(
                 entry, errors=errs, shape=[n, p, dk, dv], main=bool(case.get("main")))
             del q, k, v, do, out, lse, refs, got, bufs, lse32, delta
         torch.cuda.empty_cache()
     return results
+
+
+def baseline_bwd_lib(path):
+    """The library of another ``attention_bwd.cu`` at ``path`` (same C
+    interface), built with the port's flags beside the port's own."""
+    import ctypes
+    import hashlib
+
+    from segmentron_tpu_torch.ops import kernels
+
+    src = open(path, "rb").read()
+    out = kernels.BUILD_DIR / f"libattention_bwd_baseline-{hashlib.sha256(src).hexdigest()[:16]}.so"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([kernels._nvcc(), *kernels._NVCC_FLAGS, "-o", str(out), path],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the baseline {path}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_dq_launch.argtypes = [ptr] * 7 + [i, i, i, i, f, i, ptr]
+    lib.flash_attention_bwd_dkv_launch.argtypes = [ptr] * 8 + [i, i, i, i, f, i, ptr]
+    lib.flash_attention_bwd_dq_launch.restype = i
+    lib.flash_attention_bwd_dkv_launch.restype = i
+    return lib
+
+
+def compare_flash_bwd(torch, attention, card, dev, gen, path):
+    """At each case in f32, the dq and dk/dv kernels of the baseline source
+    ``path`` and of this one, each median of 20, in turns old, new, new,
+    old; the baseline's results held to the same f32 bar against this
+    source's. Returns {case: {"dq"|"dkv": {"old": [ms, ms], "new": [ms, ms]}}}."""
+    old_lib = baseline_bwd_lib(path)
+    results = {}
+    for case in FLASH_BWD_CASES:
+        n, p, dk, dv, scale = case["n"], case["p"], case["dk"], case["dv"], case["scale"]
+        q, k = (torch.randn(n, p, dk, generator=gen).to(dev) for _ in range(2))
+        v, do = (torch.randn(n, p, dv, generator=gen).to(dev) for _ in range(2))
+        out, lse = attention.flash_attention_plain(q, k, v, scale)
+        lse, delta = attention._bwd_stats(q, do, out, lse)
+        got = {ver: (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+               for ver in ("old", "new")}
+
+        def run(ver, which):
+            outs = got[ver][:1] if which == "dq" else got[ver][1:]
+            if ver == "new":
+                return attention._launch_bwd(which, q, k, v, do, lse, delta, scale, *outs)
+            rc = getattr(old_lib, f"flash_attention_bwd_{which}_launch")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), *(t.data_ptr() for t in outs), n, p, dk, dv, float(scale), 0,
+                torch.cuda.current_stream().cuda_stream)
+            attention._raise_rc(f"baseline flash_attention_bwd_{which}_launch", rc)
+
+        entry = {}
+        for which in ("dq", "dkv"):
+            times = {"old": [], "new": []}
+            for ver in ("old", "new", "new", "old"):
+                times[ver].append(median_ms(torch, lambda: run(ver, which)))
+            entry[which] = times
+        torch.cuda.synchronize()
+        for gname, a, b in zip(("dq", "dk", "dv"), got["old"], got["new"]):
+            err, ref = (a - b).abs().max().item(), b.abs().max().item()
+            if not err <= 1e-4 * max(1.0, ref):
+                fail(f"baseline flash_attention_bwd {case['what']}: {gname} differs by {err:.6g}")
+        print(f"{card} flash_attention_bwd float32 {case['what']}: baseline {path} against this "
+              f"source, old/new/new/old: " + "; ".join(
+                  f"{w} old {' '.join(f'{x:.4f}' for x in t['old'])} ms, new "
+                  f"{' '.join(f'{x:.4f}' for x in t['new'])} ms" for w, t in entry.items()))
+        results[case["what"]] = entry
+        del q, k, v, do, out, lse, delta, got
+        torch.cuda.empty_cache()
+    return results
+
+
+def flash_bwd_only(torch, attention, card):
+    """``--flash-bwd``: build ``csrc/attention_bwd.cu``, print its ptxas
+    report, check both kernels at every case, optionally against a
+    baseline source."""
+    from segmentron_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    build(["attention_bwd"])
+    print(f"{card} build attention_bwd: {time.perf_counter() - t0:.2f} s")
+    print_ptxas(card, "attention_bwd")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
+    results = {"flash_attention_bwd": check_flash_bwd_kernels(
+        torch, attention, card, dev, gen, forward=attention.flash_attention_plain)}
+    for arg in sys.argv[1:]:
+        if arg.startswith("--baseline="):
+            results["baseline"] = compare_flash_bwd(torch, attention, card, dev, gen,
+                                                    arg.split("=", 1)[1])
+    print(json.dumps(results))
+    return 0
+
+
+# Probe builds of csrc/attention_bwd.cu (--flash-bwd-probe); "cvt" gives the
+# kernels' results, the others wrong ones (times only).
+FLASH_BWD_BUILDS = {
+    "full": (),
+    "cvt": ("-DATTN_BWD_CVT",),
+    "no split": ("-DATTN_BWD_NO_SPLIT",),
+    "one pass": ("-DATTN_BWD_ONE_PASS",),
+    "one pass, no split": ("-DATTN_BWD_ONE_PASS", "-DATTN_BWD_NO_SPLIT"),
+    "no loads": ("-DATTN_BWD_NO_LOADS",),
+    "no loads, one pass, no split": ("-DATTN_BWD_NO_LOADS", "-DATTN_BWD_ONE_PASS",
+                                     "-DATTN_BWD_NO_SPLIT"),
+    "loads only": ("-DATTN_BWD_LOADS_ONLY",),
+}
+# (threads a block, independent accumulators a warp) of the mma.sync peak
+MMA_PEAK_SHAPES = [(256, 8), (512, 8), (1024, 8), (256, 1), (1024, 1)]
+
+
+def print_sass_mix(card, name, kernels_re, top=14):
+    """The most frequent SASS opcodes (as cuobjdump prints them) of each
+    kernel of ``csrc/<name>.cu`` whose mangled name matches ``kernels_re``:
+    a static count over the kernel's code, not a dynamic one."""
+    import collections
+    import re
+    import shutil
+
+    from segmentron_tpu_torch.ops.kernels import _target
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print(f"{card} sass {name}: cuobjdump not found")
+        return
+    sass = subprocess.run([tool, "-sass", str(_target(name))], capture_output=True,
+                          text=True, check=True).stdout
+    with open(os.path.join(OUT_DIR, f"{name}.sass"), "w") as f:
+        f.write(sass)
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split(None, 1)[0]
+        if not re.search(kernels_re, fn):
+            continue
+        ops = collections.Counter(m.group(1) for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T] )?([A-Z][A-Z0-9_]*)", part))
+        print(f"{card} sass {name} {fn[:60]}: {sum(ops.values())} instructions: "
+              + ", ".join(f"{op} {c}" for op, c in ops.most_common(top)))
+
+
+def flash_bwd_probe(torch, attention, card):
+    """``--flash-bwd-probe``: the f32 kernels and their probe builds
+    (``FLASH_BWD_BUILDS``) at the train shapes, timed in turns (each build,
+    then each again in reverse order; median of 20 each); "cvt" held
+    bitwise to the full build; the SASS opcode counts of the f32 kernels;
+    the issue rate of ``mma.sync`` m16n8k8 tf32 alone (``MMA_PEAK_SHAPES``,
+    4 blocks an SM)."""
+    from segmentron_tpu_torch.ops import kernels
+
+    import ctypes
+
+    libs = {}
+    for name, flags in FLASH_BWD_BUILDS.items():
+        kernels.DEFINES["attention_bwd"] = flags
+        kernels._loaded.pop("attention_bwd", None)
+        libs[name] = attention._lib_bwd()
+        if name == "full":
+            print_sass_mix(card, "attention_bwd", r"(dq|dkv)_f32_kernelILi512E")
+    gen, dev = torch.Generator().manual_seed(0), torch.device("cuda")
+    kernels.DEFINES["attention_bwd"] = ("-DATTN_BWD_MMA_PEAK",)
+    kernels._loaded.pop("attention_bwd", None)
+    peak = attention._lib_bwd().attention_bwd_mma_peak
+    peak.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    sink, iters, blocks = torch.zeros(1024, device=dev), 4096, 132 * 4
+    for threads, chains in MMA_PEAK_SHAPES:
+        def run():
+            attention._raise_rc("attention_bwd_mma_peak", peak(
+                sink.data_ptr(), blocks, threads, iters, chains,
+                torch.cuda.current_stream().cuda_stream))
+        ms = median_ms(torch, run, n=10)
+        flops = 2.0 * 16 * 8 * 8 * blocks * (threads // 32) * iters * chains
+        print(f"{card} mma.sync m16n8k8 tf32: {blocks} blocks of {threads} threads, {chains} "
+              f"accumulator chain(s) a warp: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
+    for case in FLASH_BWD_CASES[:2]:
+        n, p, dk, dv, scale = case["n"], case["p"], case["dk"], case["dv"], case["scale"]
+        q, k = (torch.randn(n, p, dk, generator=gen).to(dev) for _ in range(2))
+        v, do = (torch.randn(n, p, dv, generator=gen).to(dev) for _ in range(2))
+        out, lse = attention.flash_attention_plain(q, k, v, scale)
+        lse, delta = attention._bwd_stats(q, do, out, lse)
+        got = {b: (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)) for b in libs}
+        times = {}
+        for b in [*libs, *reversed(libs)]:
+            kernels._loaded["attention_bwd"] = libs[b]
+            for which, outs in (("dq", got[b][:1]), ("dkv", got[b][1:])):
+                times.setdefault(which, {}).setdefault(b, []).append(median_ms(
+                    torch, lambda: attention._launch_bwd(which, q, k, v, do, lse, delta, scale,
+                                                         *outs)))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got["full"], got["cvt"]))
+        print(f"{card} flash_attention_bwd float32 {case['what']} probe builds, ms (in turns): "
+              + "; ".join(f"{which} " + ", ".join(
+                  f"{b} {' '.join(f'{x:.4f}' for x in t)}" for b, t in per.items())
+                  for which, per in times.items())
+              + f"; full bitwise equal to cvt: {same}")
+        del q, k, v, do, out, lse, delta, got
+        torch.cuda.empty_cache()
+    kernels.DEFINES.pop("attention_bwd", None)
+    kernels._loaded.pop("attention_bwd", None)
+    return 0
 
 
 # -------------------------------------------------------------------- model
@@ -1256,10 +1483,18 @@ def print_ptxas(card, name):
     fn = None
     for ln in _target(name).with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:
-            # the mangled name's kernel and its template argument (Lb1E: int8)
+            # the mangled name's kernel and its template arguments (Lb1E: int8;
+            # the flash backward's Dv and, in f32, the Dk its sums are sized for)
             m = re.search(r"\d(probe_dot_(?:wgmma|mma_sync))(?:ILb([01])E)?", ln)
-            arg = m and m.group(2) and ("<int8>" if m.group(2) == "1" else "<bf16>")
-            fn = m.group(1) + (arg or "") if m else ln
+            mb = re.search(r"\d((?:dq|dkv)_(?:f32|bf16)_kernel)ILi(\d+)E(?:Li(\d+)E)?", ln)
+            if m:
+                arg = m.group(2) and ("<int8>" if m.group(2) == "1" else "<bf16>")
+                fn = m.group(1) + (arg or "")
+            elif mb:
+                fn = f"{mb.group(1)}<Dv {mb.group(2)}" + (
+                    f", Dk <= {mb.group(3)}>" if mb.group(3) else ">")
+            else:
+                fn = ln
         elif fn and ("registers" in ln or "spill" in ln):
             print(f"{card} ptxas {name} {fn}: {ln.split(':', 1)[-1].strip()}")
 
@@ -1523,6 +1758,10 @@ def main():
         return probe(torch, card)
     if "--probe-dot" in sys.argv[1:]:
         return probe_dot_breakdown(torch, card)
+    if "--flash-bwd" in sys.argv[1:]:
+        return flash_bwd_only(torch, attention, card)
+    if "--flash-bwd-probe" in sys.argv[1:]:
+        return flash_bwd_probe(torch, attention, card)
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -1558,6 +1797,7 @@ def main():
     def read_counts():
         return {name: fn.launches for name, fn in wrappers.items()}
 
+    print_ptxas(card, "attention_bwd")
     flash_bwd_results = check_flash_bwd_kernels(torch, attention, card, dev, gen)
     flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)

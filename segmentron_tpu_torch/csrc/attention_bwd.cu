@@ -23,8 +23,14 @@
 // = bf16(x - hi)) in two mma.sync, which keeps ~16 bits of it (relative error
 // ~2^-17) instead of the 8 of one bf16. Rounding p and ds to a single bf16, as
 // FlashAttention-2 does, halves those products; that is a later change, to be
-// measured against this one. f32 inputs: CUDA-core FMA throughout, no TF32 and
-// no bf16. Sums are f32; dq and dk are scaled at the end; one cast at the store.
+// measured against this one. f32 inputs: all five products on the tensor
+// cores in split TF32 (mma.sync m16n8k8 tf32; each operand x as hi =
+// tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away from
+// zero; lo . hi + hi . lo, then hi . hi, into f32; lo . lo dropped), which
+// keeps ~21 bits of every operand, s = q . k^T included (at a scale of 1 an
+// error in s is an error relative to p). No bf16 on the f32 route, and nothing
+// reads torch.backends' TF32 switches. Sums are f32; dq and dk are scaled at
+// the end; one cast at the store.
 //
 // Bound on an H100 (SXM, 700 W) at the train shapes (576x576 crops, output
 // stride 8, P = 72 * 72 = 5184, batch 16): the dq pass does 2 P^2 (2 Dk + Dv)
@@ -32,8 +38,10 @@
 // DANet's PAM (Dk 64, Dv 512): 0.550 and 0.991 TFLOP, 0.556 and 1.002 ms at the
 // 989 TFLOP/s bf16 peak; OCNet's base block (Dk 256, Dv 512): 0.881 and 1.321
 // TFLOP, 0.890 and 1.336 ms. Bound by operations: the bytes (q, k, v, do, dq,
-// dk, dv once) take ~0.1 ms at 3.35 TB/s. In f32 (67 TFLOP/s) 8.2 / 14.8 ms
-// (DANet) and 13.1 / 19.7 ms (OCNet).
+// dk, dv once) take ~0.1 ms at 3.35 TB/s. In f32, split TF32 issues three
+// products for each: at the 495 TFLOP/s TF32 peak 3.34 and 6.00 ms (DANet),
+// 5.34 and 8.01 ms (OCNet); the CUDA cores' FMA at 67 TFLOP/s would take 8.21
+// and 14.79 ms, 13.14 and 19.71 ms.
 //
 // Design, bf16 (8 warps, one block per SM as in the forward):
 //   dq: 64 query rows, key tiles of 64. q and do of the block stay in shared
@@ -52,9 +60,10 @@
 //     as in dq (warp w: queries 16 (w % 4).., keys 16 (w / 4)..); p and ds
 //     go to shared memory as hi/lo and are read back transposed (ldmatrix
 //     .trans) as the left operands of p^T . do and ds^T . q.
-// f32: 32-row tiles both ways. S and dP: warp w owns 4 query rows, a lane one
-// key, so q and do reads are warp broadcasts. dq: warp w, 4 rows, lane the
-// float4 column groups lane + 32 c; dk/dv: warp w, 4 keys, the same columns.
+// f32 (8 warps, split TF32, below): dq keeps q and do of 64 query rows resident
+//   and streams k and v through a cp.async ring in 32-column chunks, ds never
+//   leaving registers; dk/dv keeps k and v of 32 keys resident, q and do
+//   tiles of 32 queries stream through, p and ds go through shared memory.
 //
 // C interface: each launch function returns cudaGetLastError() after the
 // launch, or -1 for a shape the kernels do not take.
@@ -491,229 +500,537 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_bf16_kernel(Args a) {
   }
 }
 
-// -------------------------------------------------------------------- f32
-constexpr int kPad32 = 4;
-constexpr int kT32 = 32;  // rows of a tile, both ways
+// ------------------------------------------------------------- f32: split TF32
+// Every product runs on mma.sync m16n8k8 tf32 with f32 accumulation. Each f32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna: round
+// to nearest, ties away from zero) and a . b is taken as a_lo b_hi + a_hi b_lo
+// and then a_hi b_hi into the f32 sum; a_lo b_lo is dropped. That keeps ~21
+// bits of each operand against TF32's 10.
+//
+// Fragments of m16n8k8 tf32 (g = lane / 4, t = lane % 4), plain 32-bit shared
+// loads (ldmatrix takes 16-bit elements only): A (16 x 8) holds (g, t), (g+8,
+// t), (g, t+4), (g+8, t+4); B (8 x 8, k x n) holds (t, g), (t+4, g); C holds
+// row g (c0, c1) and g + 8 (c2, c3), columns 2t and 2t + 1.
+// The order of the 8 terms of a k-step is free as long as A and B agree. The
+// products whose reduction runs over the rows of a stored matrix (ds . k,
+// ds^T . q, p^T . do) take logical k = t from row 2t and k = t + 4 from row
+// 2t + 1, so B reads (2t, g), (2t+1, g). With that order a C fragment of s is
+// an A fragment as it stands (a0 = c0, a1 = c2, a2 = c1, a3 = c3), and every
+// fragment load of a row stride of 4 (mod 32) words hits 32 distinct banks in
+// both orientations: (g, t) -> 4g + t, (2t, g) -> 8t + g. Every f32 buffer
+// below has such a stride (widths are multiples of 16, plus 4).
+constexpr int kPadF = 4;
+constexpr int kChunk = 32;               // columns of a streamed chunk
+constexpr int kLdc = kChunk + kPadF;     // its row stride
+constexpr int kSmemCap = 232448;         // an H100 block's dynamic shared memory
+#ifdef ATTN_BWD_LOADS_ONLY
+constexpr bool kMath = false;
+#else
+constexpr bool kMath = true;
+#endif
 
-template <int DV> struct Layout32 {
-  static constexpr int kLdv = DV + kPad32, kLds = kT32 + kPad32;
-  __host__ __device__ static int ldq(int dqk) { return dqk + kPad32; }
-  // two (kT32, dqk) and two (kT32, DV) tiles, then two (kT32, kLds) scratch
-  // tiles (dq: ds transposed; dk/dv: p and ds), then lse and delta
-  __host__ __device__ static size_t b_off(int dqk) { return size_t(kT32) * ldq(dqk); }
-  __host__ __device__ static size_t c_off(int dqk) { return 2 * size_t(kT32) * ldq(dqk); }
-  __host__ __device__ static size_t d_off(int dqk) { return c_off(dqk) + size_t(kT32) * kLdv; }
-  __host__ __device__ static size_t s_off(int dqk) { return d_off(dqk) + size_t(kT32) * kLdv; }
-  __host__ __device__ static size_t bytes(int dqk) {
-    return (s_off(dqk) + 2 * size_t(kT32) * kLds + 2 * kT32) * sizeof(float);
+// Probe builds (chip_smoke.py --flash-bwd-probe; times only): ATTN_BWD_CVT
+// rounds by cvt.rna.tf32.f32 instead (the same values for finite x);
+// ATTN_BWD_NO_SPLIT feeds x's bits as hi and lo unrounded and
+// ATTN_BWD_ONE_PASS takes hi . hi alone (both give wrong results);
+// ATTN_BWD_NO_LOADS streams nothing after the first tiles and
+// ATTN_BWD_LOADS_ONLY does none of the math (wrong results);
+// ATTN_BWD_MMA_PEAK adds attention_bwd_mma_peak, the m16n8k8 tf32 issue rate.
+//
+// tf32(x), rounded to nearest with ties away from zero, for finite x: half a
+// TF32 ulp is added to the bits and the 13 bits below TF32's mantissa are
+// cleared (two integer instructions; cvt.rna.tf32.f32 lowers to four, with a
+// guard for inf and NaN). lo's rounding leaves those 13 bits set: mma.sync
+// reads a tf32 operand's upper 19 bits only, as ptxas's own lowering of
+// cvt.rna does for a value that only feeds an mma.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+#if defined(ATTN_BWD_NO_SPLIT)
+  hi = lo = __float_as_uint(x);
+#elif defined(ATTN_BWD_CVT)
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+#else
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+#endif
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// A fragment: x[0], x[8 rows], x[4], x[8 rows + 4], split.
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void load(const float* x, int ld) {
+    split_tf32(x[0], hi[0], lo[0]);
+    split_tf32(x[8 * ld], hi[1], lo[1]);
+    split_tf32(x[4], hi[2], lo[2]);
+    split_tf32(x[8 * ld + 4], hi[3], lo[3]);
+  }
+  // The transpose of a stored [k][m] matrix in the row-pair order: x points at
+  // (2t, g); a0 (2t, g), a1 (2t, g+8), a2 (2t+1, g), a3 (2t+1, g+8).
+  __device__ __forceinline__ void load_t(const float* x, int ld) {
+    split_tf32(x[0], hi[0], lo[0]);
+    split_tf32(x[8], hi[1], lo[1]);
+    split_tf32(x[ld], hi[2], lo[2]);
+    split_tf32(x[ld + 8], hi[3], lo[3]);
   }
 };
+// B fragment from two elements (t, g) and (t+4, g) of the k x n operand.
+struct FragB {
+  uint32_t hi0, lo0, hi1, lo1;
+  __device__ __forceinline__ FragB(float x0, float x1) {
+    split_tf32(x0, hi0, lo0);
+    split_tf32(x1, hi1, lo1);
+  }
+};
+// d += a . b, split TF32: the cross terms first, then hi . hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+#ifndef ATTN_BWD_ONE_PASS
+  mma_tf32(d, a.lo, b.hi0, b.hi1);
+  mma_tf32(d, a.hi, b.lo0, b.lo1);
+#endif
+  mma_tf32(d, a.hi, b.hi0, b.hi1);
+}
 
-// s[i] += x[i] . y over width columns: x rows (broadcast over the warp) at
-// xr + i * ldx, y the lane's row.
-__device__ __forceinline__ void dot4rows(float (&s)[4], const float* xr, int ldx, const float* y,
-                                         int width) {
-  for (int d = 0; d < width; d += 4) {
-    const float4 yv = *reinterpret_cast<const float4*>(y + d);
+#ifdef ATTN_BWD_MMA_PEAK
+// chains independent accumulators of iters mma.sync m16n8k8 tf32 each
+template <int CHAINS>
+__global__ void mma_peak_kernel(float* out, int iters) {
+  float d[CHAINS][4] = {};
+  uint32_t a[4] = {threadIdx.x, threadIdx.x + 1u, threadIdx.x + 2u, threadIdx.x + 3u};
+  const uint32_t b0 = threadIdx.x * 3u, b1 = blockIdx.x;
+  for (int i = 0; i < iters; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 xv = *reinterpret_cast<const float4*>(xr + i * ldx + d);
-      s[i] = fmaf(xv.x, yv.x, s[i]);
-      s[i] = fmaf(xv.y, yv.y, s[i]);
-      s[i] = fmaf(xv.z, yv.z, s[i]);
-      s[i] = fmaf(xv.w, yv.w, s[i]);
-    }
+    for (int c = 0; c < CHAINS; ++c) mma_tf32(d[c], a, b0, b1);
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < CHAINS; ++c) sum += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  if (sum == 1.2345f) out[threadIdx.x] = sum;
+}
+#endif
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Columns c0..c0+cols-1 of rows row0..row0+rows-1 of a (p, width) f32 matrix
+// into shared memory with row stride ld; rows >= p read as zeros.
+__device__ __forceinline__ void load_cols(float* dst, int ld, const float* src, int row0, int rows,
+                                          int width, int c0, int cols, int p) {
+  const int vecs = cols / 4;
+  for (int u = threadIdx.x; u < rows * vecs; u += kThreads) {
+    const int r = u / vecs, c = (u - r * vecs) * 4;
+    const bool valid = row0 + r < p;
+    cp_async16(dst + r * ld + c, src + size_t(valid ? row0 + r : 0) * width + c0 + c, valid);
   }
 }
 
-// acc[i][c] += w[kk][i] y[kk][4 (lane + 32 c)..] over kk < kT32, for the
-// column groups c < ncg (and 4 (lane + 32 c) < width): w is (kT32, kLds) with
-// this warp's 4 rows at column w0, y is (kT32, ldy).
-template <int NC>
-__device__ __forceinline__ void acc4rows(float (&acc)[4][NC][4], const float* w, int ldw, int w0,
-                                         const float* y, int ldy, int width, int lane) {
-#pragma unroll 4
-  for (int kk = 0; kk < kT32; ++kk) {
-    const float4 wv = *reinterpret_cast<const float4*>(w + kk * ldw + w0);
-    const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+// acc[nt] (16 rows x 32 keys, n-tiles of 8) += x . y^T over ksteps k-steps of
+// 8: x the 16 rows (row stride ldx) at their first column, y the 32 key rows
+// (row stride kLdc) at theirs; both already offset by (g, t).
+__device__ __forceinline__ void rows16_keys32(float (&acc)[4][4], const float* x, int ldx,
+                                              const float* y, int ksteps) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = 4 * (lane + 32 * c);
-      if (col < width) {
-        const float4 yv = *reinterpret_cast<const float4*>(y + kk * ldy + col);
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk < ksteps) {
+      FragA a;
+      a.load(x + 8 * kk, ldx);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][c][0] = fmaf(wr[i], yv.x, acc[i][c][0]);
-          acc[i][c][1] = fmaf(wr[i], yv.y, acc[i][c][1]);
-          acc[i][c][2] = fmaf(wr[i], yv.z, acc[i][c][2]);
-          acc[i][c][3] = fmaf(wr[i], yv.w, acc[i][c][3]);
-        }
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* yp = y + 8 * nt * kLdc + 8 * kk;
+        mma3(acc[nt], a, FragB(yp[0], yp[4]));
       }
     }
   }
 }
 
-// rows row0 + 4 warp + i (< p) of acc * mul into out (ld width).
-template <int NC>
-__device__ __forceinline__ void store4rows(float* out, int width, int row0, int p,
-                                           float (&acc)[4][NC][4], float mul, int warp,
-                                           int lane) {
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + 4 * warp + i;
-    if (row >= p) continue;
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = 4 * (lane + 32 * c);
-      if (col < width)
-        *reinterpret_cast<float4*>(out + size_t(row) * width + col) = make_float4(
-            acc[i][c][0] * mul, acc[i][c][1] * mul, acc[i][c][2] * mul, acc[i][c][3] * mul);
-    }
+    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+}
+
+// dq: a block owns 64 query rows; q and do of the block stay in shared memory
+// (66 + 132 KB at Dk 256, Dv 512). Key tiles of 64 stream through a
+// three-stage cp.async ring of 64 x 32 chunks that all eight warps fill: per
+// tile the Dk chunks of k (s = q . k^T), the Dv chunks of v (dp = do . v^T),
+// then the Dk chunks of k once more (dq += ds . k). Warp w owns rows
+// 16 (w % 4).. and keys 32 (w / 4).. of each tile: s, dp and ds stay in its
+// registers, and ds is the A operand of ds . k as it stands (the row-pair
+// order). Its dq sum covers all Dk columns for its 16 rows and its half of
+// the keys (KMAX / 2 registers, KMAX the Dk the launch sized them for: 64 or
+// 256); the two halves meet in shared memory at the end.
+template <int DV> struct DqF32Layout {
+  static constexpr int kBQ = 64, kBK = 64, kStages = 3, kLdo = DV + kPadF;
+  __host__ __device__ static constexpr int ldq(int dqk) { return dqk + kPadF; }
+  __host__ __device__ static constexpr size_t do_off(int dqk) { return size_t(kBQ) * ldq(dqk); }
+  __host__ __device__ static constexpr size_t ring_off(int dqk) {
+    return do_off(dqk) + size_t(kBQ) * kLdo;
   }
-}
+  __host__ __device__ static constexpr size_t bytes(int dqk) {
+    return (ring_off(dqk) + size_t(kStages) * kBK * kLdc) * sizeof(float);
+  }
+};
 
-template <int NC>
-__device__ __forceinline__ void zero(float (&acc)[4][NC][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
-}
-
-// dq: a block owns 32 query rows (q in tile a, do in tile c), key tiles of
-// 32 (k in tile b, v in tile d); ds goes to scratch 0 transposed, [key][row].
-template <int DV>
+template <int DV, int KMAX>
 __global__ void __launch_bounds__(kThreads, 1) dq_f32_kernel(Args a) {
-  using L = Layout32<DV>;
-  constexpr int kLdv = L::kLdv, kLds = L::kLds;
+  using L = DqF32Layout<DV>;
+  constexpr int kBQ = L::kBQ, kBK = L::kBK, kStages = L::kStages, kLdo = L::kLdo;
+  constexpr int kNcv = DV / kChunk;
+  static_assert(L::bytes(256) <= kSmemCap, "dq: shared memory");
   extern __shared__ __align__(16) unsigned char smem[];
   const int dqk = a.dqk, p = a.p, ldq = L::ldq(dqk);
-  float* base = reinterpret_cast<float*>(smem);
-  float* sq = base;
-  float* sk = base + L::b_off(dqk);
-  float* sdo = base + L::c_off(dqk);
-  float* sv = base + L::d_off(dqk);
-  float* sdst = base + L::s_off(dqk);
-  float* slse = sdst + 2 * kT32 * kLds;
-  float* sdelta = slse + kT32;
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sdo = sq + L::do_off(dqk);
+  float* ring = sq + L::ring_off(dqk);
 
-  const int b = blockIdx.y, q0 = blockIdx.x * kT32;
+  const int b = blockIdx.y, q0 = blockIdx.x * kBQ;
   const float* q = static_cast<const float*>(a.q) + size_t(b) * p * dqk;
   const float* k = static_cast<const float*>(a.k) + size_t(b) * p * dqk;
   const float* v = static_cast<const float*>(a.v) + size_t(b) * p * DV;
   const float* dout = static_cast<const float*>(a.dout) + size_t(b) * p * DV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3, cg = warp >> 2;
 
-  load_rows(sq, ldq, q, q0, kT32, dqk, p);
-  load_rows(sdo, kLdv, dout, q0, kT32, DV, p);
-  load_rows(sk, ldq, k, 0, kT32, dqk, p);
-  load_rows(sv, kLdv, v, 0, kT32, DV, p);
-  cp_async_commit();
-  load_row_stats(slse, sdelta, a, b, q0, kT32);
-
-  float acc[4][2][4];  // rows 4 warp + i, columns 4 (lane + 32 c)..
-  zero(acc);
-  const int nk = (p + kT32 - 1) / kT32;
-  for (int j = 0; j < nk; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // k and v tile j are in
-
-    // 1. S and dP: rows 4 warp.., key lane
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-    dot4rows(s, sq + 4 * warp * ldq, ldq, sk + lane * ldq, dqk);
-    dot4rows(dp, sdo + 4 * warp * kLdv, kLdv, sv + lane * kLdv, DV);
-    // 2. ds, transposed into scratch
-    const bool key_ok = j * kT32 + lane < p;
-    float ds[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = 4 * warp + i;
-      const float pr = key_ok ? expf(s[i] * a.scale - slse[row]) : 0.f;
-      ds[i] = pr * (dp[i] - sdelta[row]);
+  // the chunk stream: per key tile nck chunks of k, kNcv of v, nck of k
+  const int nck = (dqk + kChunk - 1) / kChunk, per_tile = 2 * nck + kNcv;
+  const int nk = (p + kBK - 1) / kBK, total = nk * per_tile;
+  auto issue = [&](int s) {
+    if (s < total) {
+      const int j = s / per_tile, r = s - j * per_tile;
+      const bool is_v = r >= nck && r < nck + kNcv;
+      const int c0 = kChunk * (r < nck ? r : is_v ? r - nck : r - nck - kNcv);
+      const int width = is_v ? DV : dqk;
+#ifndef ATTN_BWD_NO_LOADS
+      load_cols(ring + (s % kStages) * kBK * kLdc, kLdc, is_v ? v : k, j * kBK, kBK, width, c0,
+                min(kChunk, width - c0), p);
+#endif
     }
-    *reinterpret_cast<float4*>(sdst + lane * kLds + 4 * warp) = make_float4(ds[0], ds[1], ds[2], ds[3]);
-    __syncthreads();  // ds is in; every warp is done with v tile j
-    if (j + 1 < nk) load_rows(sv, kLdv, v, (j + 1) * kT32, kT32, DV, p);
     cp_async_commit();
+  };
+  // chunk s is in and every warp is done with chunk s - 1: its stage takes
+  // chunk s + kStages - 1
+  auto next = [&](int s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(s + kStages - 1);
+    return ring + (s % kStages) * kBK * kLdc;
+  };
 
-    // 3. dq += ds . k
-    acc4rows(acc, sdst, kLds, 4 * warp, sk, ldq, dqk, lane);
-    __syncthreads();  // every warp is done with k tile j and ds
-    if (j + 1 < nk) load_rows(sk, ldq, k, (j + 1) * kT32, kT32, dqk, p);
-    cp_async_commit();
+  load_cols(sq, ldq, q, q0, kBQ, dqk, 0, dqk, p);
+  load_cols(sdo, kLdo, dout, q0, kBQ, DV, 0, DV, p);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  float lse[2], delta[2];  // rows 16 rg + g, + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * rg + g + 8 * h;
+    lse[h] = row < p ? a.lse[size_t(b) * p + row] : 0.f;
+    delta[h] = row < p ? a.delta[size_t(b) * p + row] : 0.f;
   }
-  store4rows(static_cast<float*>(a.dq) + size_t(b) * p * dqk, dqk, q0, p, acc, a.scale, warp,
-             lane);
+  const float* xq = sq + (16 * rg + g) * ldq + t;
+  const float* xdo = sdo + (16 * rg + g) * kLdo + t;
+  const int yoff = (32 * cg + g) * kLdc + t;      // s, dp: key rows g..
+  const int doff = (32 * cg + 2 * t) * kLdc + g;  // ds . k: key rows 2t..
+
+  float acc[KMAX / 8][4];  // rows 16 rg + g (+8), columns 8 nt + 2t
+  zero_acc(acc);
+  int s = 0;
+  for (int j = 0; j < nk; ++j) {
+    float sacc[4][4], dpacc[4][4];  // keys 32 cg + 8 nt + 2t of tile j
+    zero_acc(sacc);
+    zero_acc(dpacc);
+    for (int r = 0; r < nck; ++r, ++s) {
+      const float* st = next(s);
+      if (kMath)
+        rows16_keys32(sacc, xq + kChunk * r, ldq, st + yoff, min(4, (dqk - kChunk * r) / 8));
+    }
+    for (int r = 0; r < kNcv; ++r, ++s) {
+      const float* st = next(s);
+      if (kMath) rows16_keys32(dpacc, xdo + kChunk * r, kLdo, st + yoff, 4);
+    }
+    // p = exp(scale s - lse) (0 past P), ds = p (dp - delta), as A fragments
+    FragA ds[4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j * kBK + 32 * cg + 8 * nt + 2 * t + e;
+          const float pr = key < p ? expf(sacc[nt][2 * h + e] * a.scale - lse[h]) : 0.f;
+          const int ai = h + 2 * e;  // c0 -> a0, c1 -> a2, c2 -> a1, c3 -> a3
+          split_tf32(pr * (dpacc[nt][2 * h + e] - delta[h]), ds[nt].hi[ai], ds[nt].lo[ai]);
+        }
+#pragma unroll
+    for (int c = 0; c < KMAX / kChunk; ++c) {
+      if (c == nck) break;
+      const float* st = next(s++) + doff;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!kMath || kChunk * c + 8 * i >= dqk) continue;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const float* yp = st + 8 * ks * kLdc + 8 * i;
+          mma3(acc[4 * c + i], ds[ks], FragB(yp[0], yp[kLdc]));
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with q: it takes the key half 1 sums
+
+  float* part = sq + (16 * rg + g) * ldq + 2 * t;
+  if (cg == 1) {
+#pragma unroll
+    for (int nt = 0; nt < KMAX / 8; ++nt)
+      if (8 * nt < dqk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(part + 8 * h * ldq + 8 * nt) =
+              make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+  }
+  __syncthreads();
+  if (cg == 0) {
+    float* dq = static_cast<float*>(a.dq) + size_t(b) * p * dqk + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + 16 * rg + g + 8 * h;
+      if (row >= p) continue;
+#pragma unroll
+      for (int nt = 0; nt < KMAX / 8; ++nt) {
+        if (8 * nt >= dqk) continue;
+        const float2 o = *reinterpret_cast<const float2*>(part + 8 * h * ldq + 8 * nt);
+        *reinterpret_cast<float2*>(dq + size_t(row) * dqk + 8 * nt) =
+            make_float2((acc[nt][2 * h] + o.x) * a.scale, (acc[nt][2 * h + 1] + o.y) * a.scale);
+      }
+    }
+  }
 }
 
-// dk/dv: a block owns 32 keys (k in tile a, v in tile c), query tiles of 32
-// (q in tile b, do in tile d); p and ds go to scratch 0 and 1, [query][key].
-template <int DV>
+// dk/dv: a block owns 32 keys, whose k and v stay in shared memory; query
+// tiles of 32 bring q and do (one buffer each, 99 KB at Dk 256, Dv 512: the
+// next tile's q loads during p^T . do, its do during the next s). The dk and
+// dv sums for 32 keys are 32 x (Dk + Dv) f32, 96 registers a thread at Dk 256,
+// Dv 512, which is what caps the keys of a block. s and dp: warp w takes
+// queries 16 (w % 2).., all 32 keys, and every fourth k-step from w / 2 of Dk
+// and of Dv; the four partial sums meet in shared memory, each warp sums one
+// n-tile of them and forms p and ds there ([query][key], f32). Then dk +=
+// ds^T . q (warp w: key half w % 2, n-tiles w / 2 + 4 i) and dv += p^T . do
+// (warp w: both key halves, the Dv / 8 columns from w Dv / 8), both with the
+// query rows in the row-pair order.
+template <int DV> struct DkvF32Layout {
+  static constexpr int kBK = 32, kBQ = 32, kLdv = DV + kPadF, kLdp = kBK + kPadF;
+  static constexpr int kPart = kWarps * 2 * 16 * 32;  // s and dp partials, floats
+  __host__ __device__ static constexpr int ldq(int dqk) { return dqk + kPadF; }
+  __host__ __device__ static constexpr size_t v_off(int dqk) { return size_t(kBK) * ldq(dqk); }
+  __host__ __device__ static constexpr size_t q_off(int dqk) {
+    return v_off(dqk) + size_t(kBK) * kLdv;
+  }
+  __host__ __device__ static constexpr size_t do_off(int dqk) {
+    return q_off(dqk) + size_t(kBQ) * ldq(dqk);
+  }
+  __host__ __device__ static constexpr size_t part_off(int dqk) {
+    return do_off(dqk) + size_t(kBQ) * kLdv;
+  }
+  __host__ __device__ static constexpr size_t bytes(int dqk) {
+    return (part_off(dqk) + kPart) * sizeof(float);
+  }
+};
+
+template <int DV, int KMAX>
 __global__ void __launch_bounds__(kThreads, 1) dkv_f32_kernel(Args a) {
-  using L = Layout32<DV>;
-  constexpr int kLdv = L::kLdv, kLds = L::kLds;
-  constexpr int kCV = DV / 128;  // dv column groups of a lane
+  using L = DkvF32Layout<DV>;
+  constexpr int kBK = L::kBK, kBQ = L::kBQ, kLdv = L::kLdv, kLdp = L::kLdp;
+  constexpr int kNJ = DV / kWarps / 8;  // dv n-tiles of a warp
+  constexpr int kNI = KMAX / 32;        // dk n-tiles of a warp, at most
+  static_assert(L::bytes(256) <= kSmemCap, "dk/dv: shared memory");
+  static_assert(2 * kBQ * kLdp <= L::kPart, "p and ds fit where the partials were");
   extern __shared__ __align__(16) unsigned char smem[];
   const int dqk = a.dqk, p = a.p, ldq = L::ldq(dqk);
-  float* base = reinterpret_cast<float*>(smem);
-  float* sk = base;
-  float* sq = base + L::b_off(dqk);
-  float* sv = base + L::c_off(dqk);
-  float* sdo = base + L::d_off(dqk);
-  float* sp = base + L::s_off(dqk);
-  float* sds = sp + kT32 * kLds;
-  float* slse = sds + kT32 * kLds;
-  float* sdelta = slse + kT32;
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + L::v_off(dqk);
+  float* sq = sk + L::q_off(dqk);
+  float* sdo = sk + L::do_off(dqk);
+  float* spart = sk + L::part_off(dqk);
+  float* sp = spart;               // after the partials are summed: p, then ds
+  float* sds = spart + kBQ * kLdp;
 
-  const int b = blockIdx.y, k0 = blockIdx.x * kT32;
+  const int b = blockIdx.y, k0 = blockIdx.x * kBK;
   const float* q = static_cast<const float*>(a.q) + size_t(b) * p * dqk;
   const float* k = static_cast<const float*>(a.k) + size_t(b) * p * dqk;
   const float* v = static_cast<const float*>(a.v) + size_t(b) * p * DV;
   const float* dout = static_cast<const float*>(a.dout) + size_t(b) * p * DV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int qh = warp & 1, kq = warp >> 1;  // s, dp: queries 16 qh.., k-steps kq + 4 i
+  const int kmi = warp & 1, kn0 = warp >> 1;  // dk: key half kmi, n-tiles kn0 + 4 i
+  const int dv0 = warp * (DV / kWarps);       // dv: this warp's columns
 
-  load_rows(sk, ldq, k, k0, kT32, dqk, p);
-  load_rows(sv, kLdv, v, k0, kT32, DV, p);
+  load_cols(sk, ldq, k, k0, kBK, dqk, 0, dqk, p);
+  load_cols(sv, kLdv, v, k0, kBK, DV, 0, DV, p);
+  load_cols(sq, ldq, q, 0, kBQ, dqk, 0, dqk, p);
+  cp_async_commit();
+  load_cols(sdo, kLdv, dout, 0, kBQ, DV, 0, DV, p);
+  cp_async_commit();
 
-  float accv[4][kCV][4];  // keys 4 warp + i, columns 4 (lane + 32 c)..
-  float acck[4][2][4];
-  zero(accv);
-  zero(acck);
-  const bool key_ok = k0 + lane < p;  // S, dP: the lane's key
-  const int nq = (p + kT32 - 1) / kT32;
-  for (int it = 0; it < nq; ++it) {
-    const int i0 = it * kT32;
-    load_rows(sq, ldq, q, i0, kT32, dqk, p);
-    load_rows(sdo, kLdv, dout, i0, kT32, DV, p);
-    cp_async_commit();
-    load_row_stats(slse, sdelta, a, b, i0, kT32);
-    cp_async_wait_all();
-    __syncthreads();  // q, do, lse and delta of tile it are in
-
-    // 1. S and dP: queries 4 warp.., key lane
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-    dot4rows(s, sq + 4 * warp * ldq, ldq, sk + lane * ldq, dqk);
-    dot4rows(dp, sdo + 4 * warp * kLdv, kLdv, sv + lane * kLdv, DV);
-    // 2. p and ds into scratch, [query][key]
+  float accv[2][kNJ][4];  // keys 16 mi + g (+8), columns dv0 + 8 nj + 2t
+  float acck[kNI][4];     // keys 16 kmi + g (+8), columns 8 (kn0 + 4 i) + 2t
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = 4 * warp + i;
-      const float pr = key_ok && i0 + row < p ? expf(s[i] * a.scale - slse[row]) : 0.f;
-      sp[row * kLds + lane] = pr;
-      sds[row * kLds + lane] = pr * (dp[i] - sdelta[row]);
+  for (int mi = 0; mi < 2; ++mi) zero_acc(accv[mi]);
+  zero_acc(acck);
+
+  const float* xq = sq + (16 * qh + g) * ldq + t;
+  const float* xdo = sdo + (16 * qh + g) * kLdv + t;
+  const float* yk = sk + g * ldq + t;
+  const float* yv = sv + g * kLdv + t;
+  // this warp's partial sums, in fragment order: [warp][s|dp][nt][c][lane]
+  float* mypart = spart + warp * 2 * 16 * 32 + lane;
+  const bool key_ok[2] = {k0 + 8 * kq + 2 * t < p, k0 + 8 * kq + 2 * t + 1 < p};
+  const int nkk = dqk / 8;
+  const int nq = (p + kBQ - 1) / kBQ;
+  for (int it = 0; it < nq; ++it) {
+    const int i0 = it * kBQ;
+    float lse[2], delta[2];  // the rows of this warp's n-tile of p: 16 qh + g (+8)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = i0 + 16 * qh + g + 8 * h;
+      lse[h] = row < p ? a.lse[size_t(b) * p + row] : 0.f;
+      delta[h] = row < p ? a.delta[size_t(b) * p + row] : 0.f;
+    }
+    // 1. partial s and dp over every fourth k-step
+    float sacc[4][4], dpacc[4][4];
+    zero_acc(sacc);
+    zero_acc(dpacc);
+    cp_async_wait<1>();
+    __syncthreads();  // q of tile it is in
+    for (int kk = kq; kMath && kk < nkk; kk += 4) {
+      FragA x;
+      x.load(xq + 8 * kk, ldq);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* yp = yk + 8 * nt * ldq + 8 * kk;
+        mma3(sacc[nt], x, FragB(yp[0], yp[4]));
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // do of tile it is in
+#pragma unroll 2
+    for (int kk = kq; kMath && kk < DV / 8; kk += 4) {
+      FragA x;
+      x.load(xdo + 8 * kk, kLdv);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* yp = yv + 8 * nt * kLdv + 8 * kk;
+        mma3(dpacc[nt], x, FragB(yp[0], yp[4]));
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        mypart[(nt * 4 + c) * 32] = sacc[nt][c];
+        mypart[(16 + nt * 4 + c) * 32] = dpacc[nt][c];
+      }
+    __syncthreads();  // every partial is in
+    // 2. this warp's n-tile kq of the sums: queries 16 qh + g (+8), keys 8 kq + 2t (+1)
+    float sv4[4] = {0.f, 0.f, 0.f, 0.f}, dv4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float* pp = spart + (qh + 2 * w) * 2 * 16 * 32 + kq * 4 * 32 + lane;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sv4[c] += pp[c * 32];
+        dv4[c] += pp[(16 + c) * 32];
+      }
+    }
+    float pr[4], ds[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int h = c >> 1, e = c & 1;
+      const bool ok = key_ok[e] && i0 + 16 * qh + g + 8 * h < p;
+      pr[c] = ok ? expf(sv4[c] * a.scale - lse[h]) : 0.f;
+      ds[c] = pr[c] * (dv4[c] - delta[h]);
+    }
+    __syncthreads();  // every warp has read the partials
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = (16 * qh + g + 8 * h) * kLdp + 8 * kq + 2 * t;
+      *reinterpret_cast<float2*>(sp + o) = make_float2(pr[2 * h], pr[2 * h + 1]);
+      *reinterpret_cast<float2*>(sds + o) = make_float2(ds[2 * h], ds[2 * h + 1]);
     }
     __syncthreads();  // p and ds are in
 
-    // 3. dv += p^T . do, dk += ds^T . q: keys 4 warp..
-    acc4rows(accv, sp, kLds, 4 * warp, sdo, kLdv, DV, lane);
-    acc4rows(acck, sds, kLds, 4 * warp, sq, ldq, dqk, lane);
-    __syncthreads();  // every warp is done with q, do, p and ds of tile it
+    // 3. dk += ds^T . q: the query rows 8 ks + 2t, + 1 of k-step ks
+#pragma unroll
+    for (int ks = 0; kMath && ks < kBQ / 8; ++ks) {
+      FragA d;
+      d.load_t(sds + (8 * ks + 2 * t) * kLdp + 16 * kmi + g, kLdp);
+      const float* yp = sq + (8 * ks + 2 * t) * ldq + g;
+#pragma unroll
+      for (int i = 0; i < kNI; ++i) {
+        const int nt = kn0 + 4 * i;
+        if (nt < nkk) mma3(acck[i], d, FragB(yp[8 * nt], yp[ldq + 8 * nt]));
+      }
+    }
+    __syncthreads();  // every warp is done with q of tile it
+#ifndef ATTN_BWD_NO_LOADS
+    if (it + 1 < nq) load_cols(sq, ldq, q, i0 + kBQ, kBQ, dqk, 0, dqk, p);
+#endif
+    cp_async_commit();
+    // 4. dv += p^T . do
+#pragma unroll
+    for (int ks = 0; kMath && ks < kBQ / 8; ++ks) {
+      FragA pt[2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) pt[mi].load_t(sp + (8 * ks + 2 * t) * kLdp + 16 * mi + g, kLdp);
+      const float* yp = sdo + (8 * ks + 2 * t) * kLdv + dv0 + g;
+#pragma unroll
+      for (int nj = 0; nj < kNJ; ++nj) {
+        const FragB y(yp[8 * nj], yp[kLdv + 8 * nj]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma3(accv[mi][nj], pt[mi], y);
+      }
+    }
+    __syncthreads();  // every warp is done with do, p and ds of tile it
+#ifndef ATTN_BWD_NO_LOADS
+    if (it + 1 < nq) load_cols(sdo, kLdv, dout, i0 + kBQ, kBQ, DV, 0, DV, p);
+#endif
+    cp_async_commit();
   }
-  store4rows(static_cast<float*>(a.dv) + size_t(b) * p * DV, DV, k0, p, accv, 1.f, warp, lane);
-  store4rows(static_cast<float*>(a.dk) + size_t(b) * p * dqk, dqk, k0, p, acck, a.scale, warp,
-             lane);
+
+  float* dk = static_cast<float*>(a.dk) + size_t(b) * p * dqk + 2 * t;
+  float* dv = static_cast<float*>(a.dv) + size_t(b) * p * DV + dv0 + 2 * t;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int key = k0 + 16 * mi + g + 8 * h;
+      if (key >= p) continue;
+#pragma unroll
+      for (int nj = 0; nj < kNJ; ++nj)
+        *reinterpret_cast<float2*>(dv + size_t(key) * DV + 8 * nj) =
+            make_float2(accv[mi][nj][2 * h], accv[mi][nj][2 * h + 1]);
+    }
+    const int key = k0 + 16 * kmi + g + 8 * h;
+    if (key >= p) continue;
+#pragma unroll
+    for (int i = 0; i < kNI; ++i) {
+      const int nt = kn0 + 4 * i;
+      if (nt < nkk)
+        *reinterpret_cast<float2*>(dk + size_t(key) * dqk + 8 * nt) =
+            make_float2(acck[i][2 * h] * a.scale, acck[i][2 * h + 1] * a.scale);
+    }
+  }
 }
 
 template <typename Kernel>
@@ -730,8 +1047,10 @@ int launch_dq(const Args& a, bool bf16_io, cudaStream_t s) {
   if (bf16_io)
     return launch(dq_bf16_kernel<DV>, DqLayout<DV>::bytes(a.dqk),
                   dim3((a.p + DqLayout<DV>::kBQ - 1) / DqLayout<DV>::kBQ, a.n), a, s);
-  return launch(dq_f32_kernel<DV>, Layout32<DV>::bytes(a.dqk),
-                dim3((a.p + kT32 - 1) / kT32, a.n), a, s);
+  using L = DqF32Layout<DV>;
+  const dim3 grid((a.p + L::kBQ - 1) / L::kBQ, a.n);
+  return a.dqk <= 64 ? launch(dq_f32_kernel<DV, 64>, L::bytes(a.dqk), grid, a, s)
+                     : launch(dq_f32_kernel<DV, 256>, L::bytes(a.dqk), grid, a, s);
 }
 
 template <int DV>
@@ -739,8 +1058,10 @@ int launch_dkv(const Args& a, bool bf16_io, cudaStream_t s) {
   if (bf16_io)
     return launch(dkv_bf16_kernel<DV>, DkvLayout<DV>::bytes(a.dqk),
                   dim3((a.p + DkvLayout<DV>::kBK - 1) / DkvLayout<DV>::kBK, a.n), a, s);
-  return launch(dkv_f32_kernel<DV>, Layout32<DV>::bytes(a.dqk),
-                dim3((a.p + kT32 - 1) / kT32, a.n), a, s);
+  using L = DkvF32Layout<DV>;
+  const dim3 grid((a.p + L::kBK - 1) / L::kBK, a.n);
+  return a.dqk <= 64 ? launch(dkv_f32_kernel<DV, 64>, L::bytes(a.dqk), grid, a, s)
+                     : launch(dkv_f32_kernel<DV, 256>, L::bytes(a.dqk), grid, a, s);
 }
 
 bool make_args(Args& a, const void* q, const void* k, const void* v, const void* dout,
@@ -796,3 +1117,21 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k, const void* v, 
 }
 
 }  // extern "C"
+
+#ifdef ATTN_BWD_MMA_PEAK
+extern "C" {
+
+// blocks of threads, each warp chains mma.sync m16n8k8 tf32 iters times on
+// chains (1 or 8) independent accumulators.
+int attention_bwd_mma_peak(float* out, int blocks, int threads, int iters, int chains,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chains == 1)
+    mma_peak_kernel<1><<<blocks, threads, 0, s>>>(out, iters);
+  else
+    mma_peak_kernel<8><<<blocks, threads, 0, s>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+#endif

@@ -30,7 +30,11 @@ q_i . k_j) v_j``. The layout is the JAX package's, ``(N, P, C)``.
 
 On an H100 the kernels are bound by operations: at DANet's shape (P 32768,
 Dk 64, Dv 512) the forward does 1.237 TFLOP, 1.25 ms at the bf16
-tensor-core peak; the sources describe their designs and bounds.
+tensor-core peak; the sources describe their designs and bounds. In f32
+the backward's five products run on the tensor cores in split TF32
+(each operand as a TF32 hi and lo, three ``mma.sync`` for each product,
+~21 bits kept of each operand), not on the CUDA cores' FMA; nothing on
+the route reads ``torch.backends``' TF32 switches.
 """
 
 from __future__ import annotations
