@@ -3,8 +3,9 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--kernels-only | --probe | --probe-dot | --flash-bwd
-                           | --flash-bwd-probe]
+    python3 chip_smoke.py [--kernels-only | --probe | --probe-dot
+                           | --flash-bwd [--baseline=<path>]
+                           | --flash-bwd-probe[=f32|bf16]]
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -30,7 +31,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    case, against ``flash_attention_bwd_plain``, beside the backward of
    ``scaled_dot_product_attention``; in f32 beside two bounds, split TF32
    (three TF32 products for each, the kernels' arithmetic) and CUDA-core
-   FMA;
+   FMA; before it, the bf16 kernels' SASS must hold ``HGMMA`` (``wgmma``)
+   and ``UTMALDG`` (TMA loads), and their tiles as the source picks them
+   (``flash_attention_bwd_plan``) must equal ``ops/attention.py::bwd_plan``;
 3b. the ceiling probe (``segmentron_tpu_torch/tools/ceiling_probe.py``):
    its kernel ``probe_dot`` against ``probe_dot_plain`` at (8192, 728),
    (8192, 768), the ragged (300, 40, 72) and (129, 33, 17) and the deep
@@ -93,16 +96,19 @@ builds, each with a phase left out, at the probe's two shapes, and prints
 the median phase stamps of a traced launch.
 ``--flash-bwd`` neither: the rehearsal after an edit of
 ``csrc/attention_bwd.cu``. It builds that source alone, prints ptxas's
-registers and spills of each kernel, and runs phase 3's flash-backward
-check (both dtypes, every case; out and lse from the plain forward, so
-``csrc/attention.cu`` is not built); ``--baseline=<path>`` adds, at each
-case in f32, the dq and dk/dv kernels of another ``attention_bwd.cu``
-(built beside it; the C interface is the same) timed against this
-source's in turns (old, new, new, old). Any failure exits non-zero.
-``--flash-bwd-probe`` times the f32 kernels' probe builds
-(``FLASH_BWD_BUILDS``: wrong results, times only) in turns at the train
-shapes, prints their SASS opcode counts and the card's ``mma.sync``
-m16n8k8 tf32 rate.
+registers and spills of each kernel, runs the SASS and tile checks above
+and phase 3's flash-backward check (both dtypes, every case; out and lse
+from the plain forward, so ``csrc/attention.cu`` is not built);
+``--baseline=<path>`` adds, at each case in f32 and bf16, the dq and
+dk/dv kernels of another ``attention_bwd.cu`` (built beside it; the C
+interface is the same) timed against this source's in turns (old, new,
+new, old). Any failure exits non-zero.
+``--flash-bwd-probe`` times the kernels' probe builds
+(``FLASH_BWD_BUILDS`` in f32, ``FLASH_BWD_BF16_BUILDS`` in bf16: a phase
+left out, wrong results, times only) in turns at the train shapes, prints
+their SASS opcode counts and the card's ``mma.sync`` m16n8k8 tf32 and
+``wgmma`` m64nNk16 bf16 rates (``WGMMA_PEAK_MODES``); ``=f32`` or
+``=bf16`` takes one dtype.
 """
 
 import dataclasses
@@ -708,6 +714,24 @@ def check_flash_bwd_kernels(torch, attention, card, dev, gen, cases=None, forwar
     return results
 
 
+def check_bwd_plans(attention, card):
+    """The bf16 kernels' tiles, stages and shared memory as the source picks
+    them (``flash_attention_bwd_plan``) against their mirror
+    ``ops/attention.py::bwd_plan``, at every case."""
+    import ctypes
+
+    for case in FLASH_BWD_CASES:
+        for i, which in enumerate(("dq", "dkv")):
+            out = (ctypes.c_int * 4)()
+            rc = attention._lib_bwd().flash_attention_bwd_plan(i, case["dk"], case["dv"], out)
+            src = dict(zip(("rows", "tile", "stages", "smem"), out))
+            mirror = attention.bwd_plan(which, case["dk"], case["dv"])
+            print(f"{card} flash_attention_bwd bf16 {which} plan {case['what']}: {src}"
+                  f"{'' if src == mirror else f' (mirror {mirror})'}")
+            if rc != 0 or src != mirror:
+                fail(f"bwd_plan({which!r}, {case['dk']}, {case['dv']}) differs from the source's")
+
+
 def baseline_bwd_lib(path):
     """The library of another ``attention_bwd.cu`` at ``path`` (same C
     interface), built with the port's flags beside the port's own."""
@@ -733,48 +757,55 @@ def baseline_bwd_lib(path):
 
 
 def compare_flash_bwd(torch, attention, card, dev, gen, path):
-    """At each case in f32, the dq and dk/dv kernels of the baseline source
-    ``path`` and of this one, each median of 20, in turns old, new, new,
-    old; the baseline's results held to the same f32 bar against this
-    source's. Returns {case: {"dq"|"dkv": {"old": [ms, ms], "new": [ms, ms]}}}."""
+    """At each case in f32 and bf16, the dq and dk/dv kernels of the
+    baseline source ``path`` and of this one, each median of 20, in turns
+    old, new, new, old; the baseline's results held to this source's (f32:
+    1e-4 max(1, max|new|); bf16: 2 bf16 ulps of max|new|, the card's bar).
+    Returns {case: {dtype: {"dq"|"dkv": {"old": [ms, ms], "new": [ms, ms]}}}}."""
     old_lib = baseline_bwd_lib(path)
     results = {}
     for case in FLASH_BWD_CASES:
         n, p, dk, dv, scale = case["n"], case["p"], case["dk"], case["dv"], case["scale"]
-        q, k = (torch.randn(n, p, dk, generator=gen).to(dev) for _ in range(2))
-        v, do = (torch.randn(n, p, dv, generator=gen).to(dev) for _ in range(2))
-        out, lse = attention.flash_attention_plain(q, k, v, scale)
-        lse, delta = attention._bwd_stats(q, do, out, lse)
-        got = {ver: (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
-               for ver in ("old", "new")}
+        for dt in (torch.float32, torch.bfloat16):
+            dname = dtype_name(dt)
+            q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
+            v, do = (torch.randn(n, p, dv, generator=gen).to(dev, dt) for _ in range(2))
+            out, lse = attention.flash_attention_plain(q, k, v, scale)
+            lse, delta = attention._bwd_stats(q, do, out, lse)
+            got = {ver: (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+                   for ver in ("old", "new")}
 
-        def run(ver, which):
-            outs = got[ver][:1] if which == "dq" else got[ver][1:]
-            if ver == "new":
-                return attention._launch_bwd(which, q, k, v, do, lse, delta, scale, *outs)
-            rc = getattr(old_lib, f"flash_attention_bwd_{which}_launch")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), *(t.data_ptr() for t in outs), n, p, dk, dv, float(scale), 0,
-                torch.cuda.current_stream().cuda_stream)
-            attention._raise_rc(f"baseline flash_attention_bwd_{which}_launch", rc)
+            def run(ver, which):
+                outs = got[ver][:1] if which == "dq" else got[ver][1:]
+                if ver == "new":
+                    return attention._launch_bwd(which, q, k, v, do, lse, delta, scale, *outs)
+                rc = getattr(old_lib, f"flash_attention_bwd_{which}_launch")(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), *(t.data_ptr() for t in outs), n, p, dk, dv,
+                    float(scale), int(dt == torch.bfloat16),
+                    torch.cuda.current_stream().cuda_stream)
+                attention._raise_rc(f"baseline flash_attention_bwd_{which}_launch", rc)
 
-        entry = {}
-        for which in ("dq", "dkv"):
-            times = {"old": [], "new": []}
-            for ver in ("old", "new", "new", "old"):
-                times[ver].append(median_ms(torch, lambda: run(ver, which)))
-            entry[which] = times
-        torch.cuda.synchronize()
-        for gname, a, b in zip(("dq", "dk", "dv"), got["old"], got["new"]):
-            err, ref = (a - b).abs().max().item(), b.abs().max().item()
-            if not err <= 1e-4 * max(1.0, ref):
-                fail(f"baseline flash_attention_bwd {case['what']}: {gname} differs by {err:.6g}")
-        print(f"{card} flash_attention_bwd float32 {case['what']}: baseline {path} against this "
-              f"source, old/new/new/old: " + "; ".join(
-                  f"{w} old {' '.join(f'{x:.4f}' for x in t['old'])} ms, new "
-                  f"{' '.join(f'{x:.4f}' for x in t['new'])} ms" for w, t in entry.items()))
-        results[case["what"]] = entry
-        del q, k, v, do, out, lse, delta, got
+            entry = {}
+            for which in ("dq", "dkv"):
+                times = {"old": [], "new": []}
+                for ver in ("old", "new", "new", "old"):
+                    times[ver].append(median_ms(torch, lambda: run(ver, which)))
+                entry[which] = times
+            torch.cuda.synchronize()
+            for gname, a, b in zip(("dq", "dk", "dv"), got["old"], got["new"]):
+                err, ref = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+                bar = (1e-4 * max(1.0, ref) if dt == torch.float32
+                       else 2 * 2.0 ** (math.floor(math.log2(ref)) - 7) if ref > 0 else 0.0)
+                if not err <= bar:
+                    fail(f"baseline flash_attention_bwd {dname} {case['what']}: {gname} differs "
+                         f"by {err:.6g} (bar {bar:.6g})")
+            print(f"{card} flash_attention_bwd {dname} {case['what']}: baseline {path} against "
+                  f"this source, old/new/new/old: " + "; ".join(
+                      f"{w} old {' '.join(f'{x:.4f}' for x in t['old'])} ms, new "
+                      f"{' '.join(f'{x:.4f}' for x in t['new'])} ms" for w, t in entry.items()))
+            results.setdefault(case["what"], {})[dname] = entry
+            del q, k, v, do, out, lse, delta, got
         torch.cuda.empty_cache()
     return results
 
@@ -789,6 +820,8 @@ def flash_bwd_only(torch, attention, card):
     build(["attention_bwd"])
     print(f"{card} build attention_bwd: {time.perf_counter() - t0:.2f} s")
     print_ptxas(card, "attention_bwd")
+    check_bf16_sass(card)
+    check_bwd_plans(attention, card)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
     results = {"flash_attention_bwd": check_flash_bwd_kernels(
@@ -814,8 +847,26 @@ FLASH_BWD_BUILDS = {
                                      "-DATTN_BWD_NO_SPLIT"),
     "loads only": ("-DATTN_BWD_LOADS_ONLY",),
 }
+# Probe builds of the bf16 kernels: wrong results, times only.
+FLASH_BWD_BF16_BUILDS = {
+    "full": (),
+    "no loads": ("-DATTN_BWD_NO_LOADS",),
+    "loads only": ("-DATTN_BWD_LOADS_ONLY",),
+    "no s, dp products": ("-DATTN_BWD_NO_SDP",),
+    "no p, ds products": ("-DATTN_BWD_NO_GRAD",),
+    "no exchange": ("-DATTN_BWD_NO_EXCHANGE",),
+    "no loads, no products": ("-DATTN_BWD_NO_LOADS", "-DATTN_BWD_NO_SDP",
+                              "-DATTN_BWD_NO_GRAD"),
+}
 # (threads a block, independent accumulators a warp) of the mma.sync peak
 MMA_PEAK_SHAPES = [(256, 8), (512, 8), (1024, 8), (256, 1), (1024, 1)]
+# (threads a block, mode) of the wgmma peak; mode -> (N, how)
+WGMMA_PEAK_SHAPES = [(128, 0), (256, 0), (384, 0), (256, 1), (384, 1), (256, 2), (256, 3),
+                     (256, 4)]
+WGMMA_PEAK_MODES = {0: (256, "A, B K-major from shared memory"), 1: (256, "A from registers"),
+                    2: (256, "A from registers, B MN-major"),
+                    3: (32, "A, B K-major from shared memory"),
+                    4: (64, "A from registers, B MN-major")}
 
 
 def print_sass_mix(card, name, kernels_re, top=14):
@@ -836,53 +887,44 @@ def print_sass_mix(card, name, kernels_re, top=14):
                           text=True, check=True).stdout
     with open(os.path.join(OUT_DIR, f"{name}.sass"), "w") as f:
         f.write(sass)
+    counts = {}
     for part in sass.split("Function : ")[1:]:
         fn = part.split(None, 1)[0]
         if not re.search(kernels_re, fn):
             continue
         ops = collections.Counter(m.group(1) for m in re.finditer(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T] )?([A-Z][A-Z0-9_]*)", part))
-        print(f"{card} sass {name} {fn[:60]}: {sum(ops.values())} instructions: "
-              + ", ".join(f"{op} {c}" for op, c in ops.most_common(top)))
+        short = re.search(r"((?:dq|dkv)_(?:f32|bf16)_kernel)(?:ILi(\d+)ELi(\d+)E)?", fn)
+        label = (f"{short.group(1)}<{short.group(2)}, {short.group(3)}>"
+                 if short and short.group(2) else short.group(1) if short else fn[:60])
+        counts[label] = ops
+        print(f"{card} sass {name} {label}: {sum(ops.values())} instructions: "
+              + ", ".join(f"{op} {c}" for op, c in ops.most_common(top))
+              + f"; HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}")
+    return counts
 
 
-def flash_bwd_probe(torch, attention, card):
-    """``--flash-bwd-probe``: the f32 kernels and their probe builds
-    (``FLASH_BWD_BUILDS``) at the train shapes, timed in turns (each build,
-    then each again in reverse order; median of 20 each); "cvt" held
-    bitwise to the full build; the SASS opcode counts of the f32 kernels;
-    the issue rate of ``mma.sync`` m16n8k8 tf32 alone (``MMA_PEAK_SHAPES``,
-    4 blocks an SM)."""
+def check_bf16_sass(card):
+    """The bf16 backward kernels' SASS: each must hold HGMMA (wgmma) and
+    UTMALDG (TMA tile loads)."""
+    counts = print_sass_mix(card, "attention_bwd", r"(dq|dkv)_bf16_kernel", top=10)
+    if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
+        fail("the bf16 flash-backward kernels lack HGMMA or UTMALDG instructions")
+
+
+def time_probe_builds(torch, attention, card, libs, dt, gen):
+    """Each build in ``libs`` (name -> loaded library) at DANet's and
+    OCNet's train shapes in dtype ``dt``, in turns (each build, then each
+    again in reverse order; median of 20 each). Returns {case: {"dq" |
+    "dkv": {build: [ms, ms]}}}; "cvt", where present, held bitwise to
+    "full"."""
     from segmentron_tpu_torch.ops import kernels
 
-    import ctypes
-
-    libs = {}
-    for name, flags in FLASH_BWD_BUILDS.items():
-        kernels.DEFINES["attention_bwd"] = flags
-        kernels._loaded.pop("attention_bwd", None)
-        libs[name] = attention._lib_bwd()
-        if name == "full":
-            print_sass_mix(card, "attention_bwd", r"(dq|dkv)_f32_kernelILi512E")
-    gen, dev = torch.Generator().manual_seed(0), torch.device("cuda")
-    kernels.DEFINES["attention_bwd"] = ("-DATTN_BWD_MMA_PEAK",)
-    kernels._loaded.pop("attention_bwd", None)
-    peak = attention._lib_bwd().attention_bwd_mma_peak
-    peak.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    sink, iters, blocks = torch.zeros(1024, device=dev), 4096, 132 * 4
-    for threads, chains in MMA_PEAK_SHAPES:
-        def run():
-            attention._raise_rc("attention_bwd_mma_peak", peak(
-                sink.data_ptr(), blocks, threads, iters, chains,
-                torch.cuda.current_stream().cuda_stream))
-        ms = median_ms(torch, run, n=10)
-        flops = 2.0 * 16 * 8 * 8 * blocks * (threads // 32) * iters * chains
-        print(f"{card} mma.sync m16n8k8 tf32: {blocks} blocks of {threads} threads, {chains} "
-              f"accumulator chain(s) a warp: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
+    dev, dname, results = torch.device("cuda"), dtype_name(dt), {}
     for case in FLASH_BWD_CASES[:2]:
         n, p, dk, dv, scale = case["n"], case["p"], case["dk"], case["dv"], case["scale"]
-        q, k = (torch.randn(n, p, dk, generator=gen).to(dev) for _ in range(2))
-        v, do = (torch.randn(n, p, dv, generator=gen).to(dev) for _ in range(2))
+        q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
+        v, do = (torch.randn(n, p, dv, generator=gen).to(dev, dt) for _ in range(2))
         out, lse = attention.flash_attention_plain(q, k, v, scale)
         lse, delta = attention._bwd_stats(q, do, out, lse)
         got = {b: (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)) for b in libs}
@@ -894,14 +936,84 @@ def flash_bwd_probe(torch, attention, card):
                     torch, lambda: attention._launch_bwd(which, q, k, v, do, lse, delta, scale,
                                                          *outs)))
         torch.cuda.synchronize()
-        same = all(torch.equal(a, c) for a, c in zip(got["full"], got["cvt"]))
-        print(f"{card} flash_attention_bwd float32 {case['what']} probe builds, ms (in turns): "
+        same = ("; full bitwise equal to cvt: "
+                + str(all(torch.equal(a, c) for a, c in zip(got["full"], got["cvt"])))
+                if "cvt" in got else "")
+        print(f"{card} flash_attention_bwd {dname} {case['what']} probe builds, ms (in turns): "
               + "; ".join(f"{which} " + ", ".join(
                   f"{b} {' '.join(f'{x:.4f}' for x in t)}" for b, t in per.items())
-                  for which, per in times.items())
-              + f"; full bitwise equal to cvt: {same}")
+                  for which, per in times.items()) + same)
+        results[case["what"]] = times
         del q, k, v, do, out, lse, delta, got
         torch.cuda.empty_cache()
+    return results
+
+
+def load_probe_builds(attention, builds):
+    """{name: the library of csrc/attention_bwd.cu built with flags}."""
+    from segmentron_tpu_torch.ops import kernels
+
+    libs = {}
+    for name, flags in builds.items():
+        kernels.DEFINES["attention_bwd"] = flags
+        kernels._loaded.pop("attention_bwd", None)
+        libs[name] = attention._lib_bwd()
+    return libs
+
+
+def flash_bwd_probe(torch, attention, card, dtypes=("float32", "bfloat16")):
+    """``--flash-bwd-probe[=f32|bf16]``: the kernels of each dtype and their
+    probe builds (``FLASH_BWD_BUILDS``, ``FLASH_BWD_BF16_BUILDS``) at the
+    train shapes, timed in turns; the SASS opcode counts of the kernels;
+    the issue rates of ``mma.sync`` m16n8k8 tf32 (``MMA_PEAK_SHAPES``, 4
+    blocks an SM) and of ``wgmma`` m64nNk16 bf16 (``WGMMA_PEAK_SHAPES``,
+    one block an SM)."""
+    from segmentron_tpu_torch.ops import kernels
+
+    import ctypes
+
+    gen = torch.Generator().manual_seed(0)
+    results = {}
+    for dname, builds, sass_re in (
+            ("float32", FLASH_BWD_BUILDS, r"(dq|dkv)_f32_kernelILi512E"),
+            ("bfloat16", FLASH_BWD_BF16_BUILDS, r"(dq|dkv)_bf16")):
+        if dname not in dtypes:
+            continue
+        libs = load_probe_builds(attention, builds)
+        kernels.DEFINES["attention_bwd"] = builds["full"]
+        print_sass_mix(card, "attention_bwd", sass_re)
+        results[dname] = time_probe_builds(torch, attention, card, libs,
+                                           getattr(torch, dname), gen)
+    dev = torch.device("cuda")
+    kernels.DEFINES["attention_bwd"] = ("-DATTN_BWD_MMA_PEAK",)
+    kernels._loaded.pop("attention_bwd", None)
+    lib = attention._lib_bwd()
+    sink, iters = torch.zeros(1024, device=dev), 4096
+    peak = lib.attention_bwd_mma_peak
+    peak.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    wpeak = lib.attention_bwd_wgmma_peak
+    wpeak.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    rates = {}
+    for what, fn, shapes, blocks in (("mma.sync m16n8k8 tf32", peak, MMA_PEAK_SHAPES, 132 * 4),
+                                     ("wgmma bf16", wpeak, WGMMA_PEAK_SHAPES, 132)):
+        for threads, arg in shapes:
+            def run():
+                attention._raise_rc(what, fn(sink.data_ptr(), blocks, threads, iters, arg,
+                                             torch.cuda.current_stream().cuda_stream))
+            ms = median_ms(torch, run, n=10)
+            if what.startswith("wgmma"):
+                n, how = WGMMA_PEAK_MODES[arg]
+                flops = 2.0 * 64 * n * 64 * blocks * (threads // 128) * iters
+                how = f"m64n{n}k16, {how}"
+            else:
+                flops = 2.0 * 16 * 8 * 8 * blocks * (threads // 32) * iters * arg
+                how = f"{arg} accumulator chain(s) a warp"
+            rate = flops / ms / 1e9
+            rates[f"{what}, {threads} threads, {how}"] = rate
+            print(f"{card} {what}: {blocks} blocks of {threads} threads, {how}: {ms:.4f} ms, "
+                  f"{rate:.1f} TFLOP/s")
+    results["rates_tflops"] = rates
+    print(json.dumps(results))
     kernels.DEFINES.pop("attention_bwd", None)
     kernels._loaded.pop("attention_bwd", None)
     return 0
@@ -1490,12 +1602,14 @@ def print_ptxas(card, name):
             if m:
                 arg = m.group(2) and ("<int8>" if m.group(2) == "1" else "<bf16>")
                 fn = m.group(1) + (arg or "")
+            elif mb and "bf16" in mb.group(1):  # <padded Dk, Dv>
+                fn = f"{mb.group(1)}<Dk padded to {mb.group(2)}, Dv {mb.group(3)}>"
             elif mb:
                 fn = f"{mb.group(1)}<Dv {mb.group(2)}" + (
                     f", Dk <= {mb.group(3)}>" if mb.group(3) else ">")
             else:
                 fn = ln
-        elif fn and ("registers" in ln or "spill" in ln):
+        elif fn and ("registers" in ln or "spill" in ln or "Performance" in ln):
             print(f"{card} ptxas {name} {fn}: {ln.split(':', 1)[-1].strip()}")
 
 
@@ -1760,8 +1874,11 @@ def main():
         return probe_dot_breakdown(torch, card)
     if "--flash-bwd" in sys.argv[1:]:
         return flash_bwd_only(torch, attention, card)
-    if "--flash-bwd-probe" in sys.argv[1:]:
-        return flash_bwd_probe(torch, attention, card)
+    for arg in sys.argv[1:]:
+        if arg.startswith("--flash-bwd-probe"):
+            which = arg.partition("=")[2]
+            return flash_bwd_probe(torch, attention, card, {
+                "f32": ("float32",), "bf16": ("bfloat16",)}.get(which, ("float32", "bfloat16")))
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -1798,6 +1915,8 @@ def main():
         return {name: fn.launches for name, fn in wrappers.items()}
 
     print_ptxas(card, "attention_bwd")
+    check_bf16_sass(card)
+    check_bwd_plans(attention, card)
     flash_bwd_results = check_flash_bwd_kernels(torch, attention, card, dev, gen)
     flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)

@@ -12,25 +12,27 @@
 // as there: a dq block owns a tile of query rows and loops over all key tiles;
 // a dk/dv block owns a tile of key rows and loops over all query tiles. Nothing
 // carries between blocks and there are no atomics; the TPU kernels' sequential
-// grid dimension is the loop inside a block here. Key columns >= P get p = 0;
-// rows >= P are zero-filled by cp.async and not stored.
+// grid dimension is the loop inside a block here. Rows >= P are read as zeros
+// (TMA's fill in bf16, cp.async's in f32) and not stored.
 //
 // Rounding: the Pallas kernels cast q, k, v and do to f32 and take all five
 // products in f32. Here, for bf16 inputs, s = q . k^T and dp = do . v^T run on
-// mma.sync m16n8k16 with f32 accumulation, the same math up to summation
+// wgmma (bf16 operands, f32 accumulation), the same math up to summation
 // order. The other three products (ds . k, ds^T . q, p^T . do) have the f32 p
 // or ds as left operand: it is fed as a hi + lo pair of bf16 (hi = bf16(x), lo
-// = bf16(x - hi)) in two mma.sync, which keeps ~16 bits of it (relative error
-// ~2^-17) instead of the 8 of one bf16. Rounding p and ds to a single bf16, as
-// FlashAttention-2 does, halves those products; that is a later change, to be
-// measured against this one. f32 inputs: all five products on the tensor
-// cores in split TF32 (mma.sync m16n8k8 tf32; each operand x as hi =
-// tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away from
-// zero; lo . hi + hi . lo, then hi . hi, into f32; lo . lo dropped), which
-// keeps ~21 bits of every operand, s = q . k^T included (at a scale of 1 an
-// error in s is an error relative to p). No bf16 on the f32 route, and nothing
-// reads torch.backends' TF32 switches. Sums are f32; dq and dk are scaled at
-// the end; one cast at the store.
+// = bf16(x - hi)) in two wgmma into one f32 sum, which keeps ~16 bits of it
+// (relative error ~2^-17) instead of the 8 of one bf16. (Rounding p and ds to
+// a single bf16, as FlashAttention-2 does, halves those products and stays
+// inside chip_smoke.py's bf16 bar at ~0.6-0.7 of its L2 term, against ~0.02
+// for the pair: tests/test_torch_attention_bwd_bf16.py; a different result,
+// not taken here.) f32 inputs: all five products on the tensor cores in split
+// TF32 (mma.sync m16n8k8 tf32; each operand x as hi = tf32(x) and lo =
+// tf32(x - hi), rounded to nearest with ties away from zero; lo . hi + hi .
+// lo, then hi . hi, into f32; lo . lo dropped), which keeps ~21 bits of every
+// operand, s = q . k^T included (at a scale of 1 an error in s is an error
+// relative to p). No bf16 on the f32 route, and nothing reads torch.backends'
+// TF32 switches. Sums are f32; dq and dk are scaled at the end; one cast at
+// the store.
 //
 // Bound on an H100 (SXM, 700 W) at the train shapes (576x576 crops, output
 // stride 8, P = 72 * 72 = 5184, batch 16): the dq pass does 2 P^2 (2 Dk + Dv)
@@ -38,41 +40,78 @@
 // DANet's PAM (Dk 64, Dv 512): 0.550 and 0.991 TFLOP, 0.556 and 1.002 ms at the
 // 989 TFLOP/s bf16 peak; OCNet's base block (Dk 256, Dv 512): 0.881 and 1.321
 // TFLOP, 0.890 and 1.336 ms. Bound by operations: the bytes (q, k, v, do, dq,
-// dk, dv once) take ~0.1 ms at 3.35 TB/s. In f32, split TF32 issues three
-// products for each: at the 495 TFLOP/s TF32 peak 3.34 and 6.00 ms (DANet),
-// 5.34 and 8.01 ms (OCNet); the CUDA cores' FMA at 67 TFLOP/s would take 8.21
-// and 14.79 ms, 13.14 and 19.71 ms.
+// dk, dv once) take ~0.1 ms at 3.35 TB/s. The lo halves add 2 P^2 Dk (dq) and
+// 2 P^2 (Dk + Dv) (dk/dv) of products the bound leaves out. In f32, split TF32
+// issues three products for each: at the 495 TFLOP/s TF32 peak 3.34 and 6.00
+// ms (DANet), 5.34 and 8.01 ms (OCNet); the CUDA cores' FMA at 67 TFLOP/s
+// would take 8.21 and 14.79 ms, 13.14 and 19.71 ms.
 //
-// Design, bf16 (8 warps, one block per SM as in the forward):
-//   dq: 64 query rows, key tiles of 64. q and do of the block stay in shared
-//     memory; each key tile brings k and v (at Dk 256, Dv 512: 219 KB in all,
-//     single-buffered; v's next tile is loaded during the ds . k product).
-//     S and dP: warp w computes rows 16 (w % 4).., keys 32 (w / 4).. of both,
-//     so p and ds are formed in registers and go to shared memory as hi/lo.
-//     dq += ds . k: warp w owns rows 16 (w % 4).. and the Dk/2 columns of
-//     half w / 4 (up to 64 f32 registers a thread).
-//   dk/dv: 32 key rows, query tiles of 64. The block's k and v stay in shared
-//     memory while q and do tiles stream through (171 KB at Dk 256, Dv 512;
-//     single-buffered). The f32 accumulators for 32 keys are 32 x (Dk + Dv):
-//     dv is split by columns, warp w the Dv/8 columns w.. for both 16-key
-//     halves (64 registers a thread at Dv 512); dk by 8-column tiles, warp w
-//     the key half w % 2 and tiles w / 2 + 4 i (up to 32 registers). S and dP
-//     as in dq (warp w: queries 16 (w % 4).., keys 16 (w / 4)..); p and ds
-//     go to shared memory as hi/lo and are read back transposed (ldmatrix
-//     .trans) as the left operands of p^T . do and ds^T . q.
+// Design, bf16 (two consumer warpgroups of 128 threads a block, one block an
+// SM; warp 0 also issues the copies; wgmma m64nNk16 with f32 accumulators;
+// every operand tile in shared memory is TMA's 128-byte-swizzled layout of
+// 64-column boxes, Dk padded to 64, 128 or 256 by TMA's zero fill):
+//   dk/dv: 64 keys (the M of every product), k and v resident (TMA once);
+//     query tiles of 32 (q, do by TMA; lse, delta by 4-byte cp.async into the
+//     same stage) stream through a ring of 2-4 stages with a full and an
+//     empty mbarrier each (DkvPlan: the most that fit 227 KB; 2 at Dk 256 and
+//     Dv 512, 3 at Dk 64). s^T = k . q^T and dp^T = v . do^T are split by
+//     their depth: warpgroup w takes Dk's and Dv's half w (m64n32k16, A = k or
+//     v in shared memory, B = q or do, K-major), and the two partial sums meet
+//     in shared memory (32 KB, two named barriers a tile), so both warpgroups
+//     hold all of s^T and dp^T. p^T and ds^T are then formed in registers and
+//     are, as they stand, A fragments (hi and lo) of dv[:, w Dv/2..] += p^T .
+//     do and dk[:, w Dk/2..] += ds^T . q (B = the stage's do or q, MN-major:
+//     wgmma's transpose bit, no transposed copy). Dv = 512 is why: dv of 64
+//     keys is 64 x 512 f32, 256 registers a thread on one warpgroup, so each
+//     warpgroup keeps half of dv and of dk (at Dk 64 all of dk's columns for
+//     one of the tile's two k-steps of queries, the two sums meeting at the
+//     end: a branch around a wgmma that differs between the warpgroups makes
+//     ptxas serialise every wgmma of the kernel): 192 accumulator registers
+//     at Dk 256, Dv 512, which leaves no room for a second tile's s^T and
+//     dp^T in flight. A producer warpgroup would cap the consumers at 168
+//     registers without setmaxnreg (384 threads), so warp 0 issues the
+//     copies after it releases a stage.
+//   dq: 64 queries, q and do resident; key tiles of 32 (k, v by TMA) stream
+//     through a ring of 2 or 4 stages (DqPlan; even, so that warpgroup w takes
+//     tiles w, w + 2, ... and refills its own stages with no wait on the
+//     other). Each warpgroup keeps a whole dq sum of the 64 rows over its
+//     tiles (Dk/2 registers): s = q . k^T and dp = do . v^T (m64n32k16, A =
+//     q or do resident), ds = p (dp - delta) in registers, the A fragments
+//     (hi and lo) of dq += ds . k (m64nDKPk16, B = the stage's k, MN-major).
+//     The two sums meet in shared memory at the end. The two warpgroups run
+//     out of step, so one's exponentials overlap the other's products.
+//   Re-reads from L2 (no cluster): dk/dv reads q and do once a 64-key block,
+//   81 blocks an image at P = 5184: 10.3 GB a pass at OCNet (1536 bytes a
+//   query row), 7.7 GB at DANet (1152), half of the former 32-key blocks';
+//   dq reads k and v once a 64-query block: 10.3 / 7.7 GB. TMA streams them
+//   at ~9-12 TB/s from L2 (chip_smoke.py --flash-bwd-probe: "loads only"),
+//   and the ring hides all but 10-14 % of it ("no loads"), so a cluster sharing
+//   each stage by multicast is not needed first: the kernels are bound by
+//   their serial phases (products, the exchange, exponentials, products),
+//   not by the copies; in dk/dv the p and ds products take the most (their
+//   probe build without them saves more than half). Registers (ptxas):
+//   dk/dv 255 with 72 bytes of spill at Dk 256, Dv 512, 251 at Dk 64; dq
+//   227 at Dk 256, 104 at Dk 64. Probe builds (times only, wrong results):
+//   ATTN_BWD_NO_LOADS copies nothing after the first ring fill,
+//   ATTN_BWD_LOADS_ONLY does no math, ATTN_BWD_NO_SDP, _NO_GRAD and
+//   _NO_EXCHANGE leave out one phase of it.
 // f32 (8 warps, split TF32, below): dq keeps q and do of 64 query rows resident
 //   and streams k and v through a cp.async ring in 32-column chunks, ds never
 //   leaving registers; dk/dv keeps k and v of 32 keys resident, q and do
 //   tiles of 32 queries stream through, p and ds go through shared memory.
 //
 // C interface: each launch function returns cudaGetLastError() after the
-// launch, or -1 for a shape the kernels do not take.
+// launch, -1 for a shape (or, in bf16, a base not 16-byte aligned) the kernels
+// do not take, -2 where a TMA tensor map cannot be made;
+// flash_attention_bwd_plan gives the bf16 kernels' tiles.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <initializer_list>
 
 namespace {
 
@@ -103,400 +142,830 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-// Rows row0..row0+rows-1 of a (p, width) matrix into shared memory with row
-// stride ld; rows >= p read as zeros.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int row0, int rows,
-                                          int width, int p) {
-  constexpr int kN = 16 / sizeof(T);
-  const int vecs = width / kN;
-  for (int u = threadIdx.x; u < rows * vecs; u += kThreads) {
-    const int r = u / vecs, c = (u - r * vecs) * kN;
-    const bool valid = row0 + r < p;
-    cp_async16(dst + r * ld + c, src + size_t(valid ? row0 + r : 0) * width + c, valid);
+// ------------------------------------------------------ Hopper primitives
+// mbarriers, TMA tile loads, wgmma descriptors and the m64nNk16 bf16 wgmma
+// (f32 accumulators) for N in {32, 64, 128, 256}, A from shared memory (ss)
+// or from registers (rs); TB is the instruction's transpose-B bit (1: B is
+// MN-major, rows of K). Every shared-memory operand is a 128-byte-swizzled
+// tile of 64-column (128-byte) boxes, 1024-byte aligned, as TMA writes it.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// Until the phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
 }
-
-// lse and delta of rows row0.. (0 past p) into shared memory.
-__device__ __forceinline__ void load_row_stats(float* slse, float* sdelta, const Args& a,
-                                               int b, int row0, int rows) {
-  for (int r = threadIdx.x; r < rows; r += kThreads) {
-    const bool valid = row0 + r < a.p;
-    const size_t i = size_t(b) * a.p + row0 + r;
-    slse[r] = valid ? a.lse[i] : 0.f;
-    sdelta[r] = valid ? a.delta[i] : 0.f;
-  }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// Arrives on bar once every cp.async this thread issued before has landed.
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
+// 4-byte asynchronous copy to shared memory; zero when !valid.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
 }
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// Box (c0, c1, c2) of a 3-D tensor map into shared memory; completes on bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+// bar.sync on named barrier id (1..15) for count threads.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// wgmma descriptor of a 128-byte-swizzled operand at p: leading and stride
+// byte offsets (multiples of 16), layout type 1 (128B).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | uint64_t(lbo >> 4) << 16 |
+         uint64_t(sbo >> 4) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins registers across the asynchronous products.
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int M, int N> __device__ __forceinline__ void fence_regs(uint32_t (&d)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) fence_regs(d[i]);
 }
 
-// x0, x1 as bf16 hi = bf16(x) and lo = bf16(x - hi), at hi[off], lo[off].
-__device__ __forceinline__ void store_hi_lo(bf16* hi, bf16* lo, int off, float x0, float x1) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  *reinterpret_cast<__nv_bfloat162*>(hi + off) = h;
-  *reinterpret_cast<__nv_bfloat162*>(lo + off) = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+template <int N> struct Wgmma;
+template <> struct Wgmma<32> {
+  template <int TB>
+  __device__ static void ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+  template <int TB>
+  __device__ static void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+template <> struct Wgmma<64> {
+  template <int TB>
+  __device__ static void ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+  template <int TB>
+  __device__ static void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+template <> struct Wgmma<128> {
+  template <int TB>
+  __device__ static void ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+        " %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+  template <int TB>
+  __device__ static void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+        " %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+template <> struct Wgmma<256> {
+  template <int TB>
+  __device__ static void ss(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+        " %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+        " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86,"
+        " %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102,"
+        " %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116,"
+        " %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, 0, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+          "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+          "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+          "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+          "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+  template <int TB>
+  __device__ static void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+        " %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+        " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86,"
+        " %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102,"
+        " %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116,"
+        " %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+          "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+          "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+          "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+          "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+
+#ifdef ATTN_BWD_MMA_PEAK
+// The wgmma m64nNk16 bf16 rate: each warpgroup chains iters groups of four
+// (a 64-deep product, one group left in flight) on shared memory that
+// nothing writes; A from shared memory or (RS) from registers, B K-major or
+// (TB) MN-major in 64-column boxes of 64 rows.
+template <int N, bool RS, int TB>
+__global__ void __launch_bounds__(384, 1) wgmma_peak_kernel(float* out, int iters) {
+  __shared__ __align__(1024) char buf[8192 + 32768];
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  const uint32_t a[4] = {threadIdx.x, threadIdx.x + 1u, threadIdx.x + 2u, threadIdx.x + 3u};
+  const uint64_t da = sw128_desc(buf, 16, 1024);
+  const uint64_t db = TB ? sw128_desc(buf + 8192, 64 * 128, 1024) : sw128_desc(buf + 8192, 16, 1024);
+  const int step = TB ? 2048 / 16 : 2;  // a k-step of 16: 16 rows, or 32 bytes of a row
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (RS) {
+        Wgmma<N>::template rs<TB>(d, a, db + step * kk, 1);
+      } else {
+        Wgmma<N>::template ss<TB>(d, da + 2 * kk, db + step * kk, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  fence_regs(d);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) sum += d[i];
+  if (sum == 1.2345f) out[threadIdx.x] = sum;
 }
+#endif
 
 // ------------------------------------------------------------------- bf16
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4): a C fragment
-// holds rows g (c0, c1) and g + 8 (c2, c3), columns 2t and 2t + 1. ldmatrix
-// lane addresses, as in the forward: an x4 of a row-major A (or .trans of a
-// row-major K x N B, two n-tiles) takes row (lane & 7) + 8 ((lane >> 3) & 1),
-// column 8 (lane >> 4) ("arow", "acol"); an x4 of an N x K B (two n-tiles),
-// or .trans of a K x M matrix read as A, takes row (lane & 7) + 8 (lane >> 4),
-// column 8 ((lane >> 3) & 1) ("brow", "bcol"); an x2 .trans of a K x N B
-// takes row lane & 15.
-constexpr int kPad = 8;
+// The design is in the note at the head of the file. A block is two
+// consumer warpgroups (256 threads, up to 255 registers each); warp 0 also
+// issues the copies. Dk is padded to DKP = 64, 128 or 256 columns: TMA's
+// zero fill past Dk makes the padding's products zero, and its columns are
+// not stored. Rows past P are zero-filled too, so no mask is needed: a key
+// row past P gives dk/dv rows that are not stored and, in dq, k = 0 rows
+// that add nothing to dq; a query row past P has q = do = 0 (and lse =
+// delta = 0), so its p = 1 and ds = 0 meet zero rows in dv += p^T . do and
+// dk += ds^T . q.
+constexpr int kBfThreads = 256;
+constexpr int kBfSmemMax = 232448;  // an H100 block's dynamic shared memory
+#ifdef ATTN_BWD_LOADS_ONLY
+constexpr bool kBfMath = false;
+#else
+constexpr bool kBfMath = true;
+#endif
+#ifdef ATTN_BWD_NO_LOADS
+constexpr bool kBfLoads = false;
+#else
+constexpr bool kBfLoads = true;
+#endif
+// Probe builds of the math's phases (times only, wrong results): without
+// the s and dp products, without the products of p and ds (dv, dk, dq),
+// without dk/dv's exchange of partial sums.
+#ifdef ATTN_BWD_NO_SDP
+constexpr bool kBfSdp = false;
+#else
+constexpr bool kBfSdp = true;
+#endif
+#ifdef ATTN_BWD_NO_GRAD
+constexpr bool kBfGrad = false;
+#else
+constexpr bool kBfGrad = true;
+#endif
+#ifdef ATTN_BWD_NO_EXCHANGE
+constexpr bool kBfExchange = false;
+#else
+constexpr bool kBfExchange = true;
+#endif
 
-template <int DV> struct DqLayout {
-  static constexpr int kBQ = 64, kBK = 64, kLdv = DV + kPad, kLds = kBK + kPad;
-  __host__ __device__ static int ldq(int dqk) { return dqk + kPad; }
-  __host__ __device__ static size_t do_off(int dqk) { return size_t(kBQ) * ldq(dqk); }
-  __host__ __device__ static size_t k_off(int dqk) { return do_off(dqk) + size_t(kBQ) * kLdv; }
-  __host__ __device__ static size_t v_off(int dqk) { return k_off(dqk) + size_t(kBK) * ldq(dqk); }
-  __host__ __device__ static size_t hi_off(int dqk) { return v_off(dqk) + size_t(kBK) * kLdv; }
-  __host__ __device__ static size_t lo_off(int dqk) { return hi_off(dqk) + size_t(kBQ) * kLds; }
-  __host__ __device__ static size_t scratch_bytes(int dqk) {
-    return ((lo_off(dqk) + size_t(kBQ) * kLds) * sizeof(bf16) + 15) / 16 * 16;
-  }
-  __host__ __device__ static size_t bytes(int dqk) { return scratch_bytes(dqk) + 2 * kBQ * 4; }
-};
+// Bytes of a rows x cols bf16 tile: cols / 64 boxes of [rows][64].
+__host__ __device__ constexpr int tile_bytes(int rows, int cols) { return rows * cols * 2; }
 
-template <int DV>
-__global__ void __launch_bounds__(kThreads, 1) dq_bf16_kernel(Args a) {
-  using L = DqLayout<DV>;
-  constexpr int kBQ = L::kBQ, kBK = L::kBK, kLdv = L::kLdv, kLds = L::kLds;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int dqk = a.dqk, p = a.p, ldq = L::ldq(dqk);
-  bf16* base = reinterpret_cast<bf16*>(smem);
-  bf16* sq = base;
-  bf16* sdo = base + L::do_off(dqk);
-  bf16* sk = base + L::k_off(dqk);
-  bf16* sv = base + L::v_off(dqk);
-  bf16* shi = base + L::hi_off(dqk);
-  bf16* slo = base + L::lo_off(dqk);
-  float* slse = reinterpret_cast<float*>(smem + L::scratch_bytes(dqk));
-  float* sdelta = slse + kBQ;
+// Descriptor of a K-major operand in a tile of `rows` rows: rows r0.. (M or
+// N, 8-row groups 1 KB apart), K columns kc..kc + 15 (32 bytes into a box row).
+__device__ __forceinline__ uint64_t kmajor_desc(const char* tile, int rows, int r0, int kc) {
+  return sw128_desc(tile + (kc / 64) * rows * 128 + r0 * 128 + (kc % 64) * 2, 16, 1024);
+}
+// Descriptor of an MN-major B in a tile of `rows` rows: K rows k0..k0 + 15
+// (8-row groups 1 KB apart), N columns n0.. (n0 a multiple of 64; 64-column
+// boxes rows * 128 bytes apart).
+__device__ __forceinline__ uint64_t mnmajor_desc(const char* tile, int rows, int k0, int n0) {
+  return sw128_desc(tile + (n0 / 64) * rows * 128 + k0 * 128, rows * 128, 1024);
+}
 
-  const int b = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const bf16* q = static_cast<const bf16*>(a.q) + size_t(b) * p * dqk;
-  const bf16* k = static_cast<const bf16*>(a.k) + size_t(b) * p * dqk;
-  const bf16* v = static_cast<const bf16*>(a.v) + size_t(b) * p * DV;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + size_t(b) * p * DV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int rg = warp & 3, cg = warp >> 2;
-  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
-  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 8 * ((lane >> 3) & 1);
-  const int hcols = dqk / 2, ntiles = dqk / 16;  // this warp's dq columns: cg * hcols..
-
-  load_rows(sq, ldq, q, q0, kBQ, dqk, p);
-  load_rows(sdo, kLdv, dout, q0, kBQ, DV, p);
-  load_rows(sk, ldq, k, 0, kBK, dqk, p);
-  load_rows(sv, kLdv, v, 0, kBK, DV, p);
-  cp_async_commit();
-  load_row_stats(slse, sdelta, a, b, q0, kBQ);
-
-  float acc[16][4];  // rows 16 rg + g (+8), columns cg * hcols + 8 nt + 2t
+__device__ __forceinline__ uint32_t bf16x2(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// The A fragment of k-step kk (columns 16 kk..) of an accumulator x of
+// m64nN, split into hi = bf16(x) and lo = bf16(x - hi). A fragment register
+// i holds rows g (i even) or g + 8 (i odd) of the 8-column chunk 2 kk + i / 2,
+// which is x[4 (2 kk + i / 2) + 2 (i % 2)], + 1.
+template <int R>
+__device__ __forceinline__ void split_frag(const float (&x)[R], int kk, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
-
-  const int nk = (p + kBK - 1) / kBK;
-  for (int j = 0; j < nk; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // k and v tile j are in
-
-    // 1. S and dP: rows 16 rg.., keys 32 cg.. of this tile
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[nt][r] = dp[nt][r] = 0.f;
-    for (int kk = 0; kk < dqk; kk += 16) {
-      uint32_t af[4];
-      ldmatrix_x4(af, sq + (16 * rg + arow) * ldq + kk + acol);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, sk + (32 * cg + 16 * np + brow) * ldq + kk + bcol);
-        mma_bf16(s[2 * np], af, bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < DV; kk += 16) {
-      uint32_t af[4];
-      ldmatrix_x4(af, sdo + (16 * rg + arow) * kLdv + kk + acol);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, sv + (32 * cg + 16 * np + brow) * kLdv + kk + bcol);
-        mma_bf16(dp[2 * np], af, bf[0], bf[1]);
-        mma_bf16(dp[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
-    // 2. p = exp(scale s - lse) (0 past P), ds = p (dp - delta), to shared memory as hi/lo
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 16 * rg + g + 8 * h;
-      const float lse = slse[row], delta = sdelta[row];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = 32 * cg + 8 * nt + 2 * t;
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pr = j * kBK + col + e < p ? expf(s[nt][2 * h + e] * a.scale - lse) : 0.f;
-          ds[e] = pr * (dp[nt][2 * h + e] - delta);
-        }
-        store_hi_lo(shi, slo, row * kLds + col, ds[0], ds[1]);
-      }
-    }
-    __syncthreads();  // ds is in; every warp is done with v tile j
-    if (j + 1 < nk) load_rows(sv, kLdv, v, (j + 1) * kBK, kBK, DV, p);
-    cp_async_commit();
-
-    // 3. dq += ds . k over this warp's rows and column half
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t ahi[4], alo[4];
-      ldmatrix_x4(ahi, shi + (16 * rg + arow) * kLds + kk + acol);
-      ldmatrix_x4(alo, slo + (16 * rg + arow) * kLds + kk + acol);
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        if (nt < ntiles) {
-          uint32_t kb[2];
-          ldmatrix_x2_trans(kb, sk + (kk + (lane & 15)) * ldq + cg * hcols + 8 * nt);
-          mma_bf16(acc[nt], ahi, kb[0], kb[1]);
-          mma_bf16(acc[nt], alo, kb[0], kb[1]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with k tile j and ds
-    if (j + 1 < nk) load_rows(sk, ldq, k, (j + 1) * kBK, kBK, dqk, p);
-    cp_async_commit();
-  }
-
-  bf16* dq = static_cast<bf16*>(a.dq) + size_t(b) * p * dqk + cg * hcols + 2 * t;
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
-    if (nt >= ntiles) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q0 + 16 * rg + g + 8 * h;
-      if (row < p)
-        *reinterpret_cast<__nv_bfloat162*>(dq + size_t(row) * dqk + 8 * nt) =
-            __floats2bfloat162_rn(acc[nt][2 * h] * a.scale, acc[nt][2 * h + 1] * a.scale);
-    }
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * (2 * kk + i / 2) + 2 * (i % 2);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[r], x[r + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = bf16x2(x[r] - hf.x, x[r + 1] - hf.y);
   }
 }
 
-template <int DV> struct DkvLayout {
-  static constexpr int kBK = 32, kBQ = 64, kLdv = DV + kPad, kLdp = kBK + kPad;
-  __host__ __device__ static int ldq(int dqk) { return dqk + kPad; }
-  __host__ __device__ static size_t v_off(int dqk) { return size_t(kBK) * ldq(dqk); }
-  __host__ __device__ static size_t q_off(int dqk) { return v_off(dqk) + size_t(kBK) * kLdv; }
-  __host__ __device__ static size_t do_off(int dqk) { return q_off(dqk) + size_t(kBQ) * ldq(dqk); }
-  // p hi, p lo, ds hi, ds lo, each [kBQ][kLdp]
-  __host__ __device__ static size_t pds_off(int dqk) { return do_off(dqk) + size_t(kBQ) * kLdv; }
-  __host__ __device__ static size_t scratch_bytes(int dqk) {
-    return ((pds_off(dqk) + 4 * size_t(kBQ) * kLdp) * sizeof(bf16) + 15) / 16 * 16;
+// Shared memory of the two kernels (bytes, with 1 KB of slack to align the
+// tiles to the swizzle's 1 KB) and the stages they take.
+template <int DKP, int DV> struct DkvPlan {
+  static constexpr int kBK = 64, kBQ = 32;  // resident keys; queries a stage
+  static constexpr int kK = tile_bytes(kBK, DKP), kV = tile_bytes(kBK, DV);
+  static constexpr int kQ = tile_bytes(kBQ, DKP), kStage = kQ + tile_bytes(kBQ, DV);
+  static constexpr int kX = 2 * 128 * kBQ * 4;  // the warpgroups' partial s^T and dp^T
+  static constexpr int kStats = 2 * kBQ * 4;    // lse and delta of a stage
+  __host__ __device__ static constexpr int bytes(int stages) {
+    return 1024 + kK + kV + stages * (kStage + kStats) + kX + (2 * stages + 1) * 8;
   }
-  __host__ __device__ static size_t bytes(int dqk) { return scratch_bytes(dqk) + 2 * kBQ * 4; }
+  __host__ __device__ static constexpr int stages() {
+    return bytes(4) <= kBfSmemMax ? 4 : bytes(3) <= kBfSmemMax ? 3 : 2;
+  }
+  static_assert(bytes(2) <= kBfSmemMax, "dk/dv does not fit");
+};
+template <int DKP, int DV> struct DqPlan {
+  static constexpr int kBQ = 64, kBK = 32;  // resident queries; keys a stage
+  static constexpr int kQ = tile_bytes(kBQ, DKP), kDo = tile_bytes(kBQ, DV);
+  static constexpr int kK = tile_bytes(kBK, DKP), kStage = kK + tile_bytes(kBK, DV);
+  static constexpr int kSum = 128 * (DKP / 2) * 4;  // warpgroup 1's dq, over the ring
+  __host__ __device__ static constexpr int ring(int stages) {
+    return stages * kStage > kSum ? stages * kStage : kSum;
+  }
+  __host__ __device__ static constexpr int bytes(int stages) {
+    return 1024 + kQ + kDo + ring(stages) + (stages + 1) * 8; }
+  // even: each warpgroup refills the stages it reads
+  __host__ __device__ static constexpr int stages() { return bytes(4) <= kBfSmemMax ? 4 : 2; }
+  static_assert(bytes(2) <= kBfSmemMax, "dq does not fit");
 };
 
-template <int DV>
-__global__ void __launch_bounds__(kThreads, 1) dkv_bf16_kernel(Args a) {
-  using L = DkvLayout<DV>;
-  constexpr int kBK = L::kBK, kBQ = L::kBQ, kLdv = L::kLdv, kLdp = L::kLdp;
-  constexpr int kNJ = DV / kWarps / 8;  // dv n-tiles of a warp
-  static_assert(kNJ % 2 == 0, "Dv / 8 must be a multiple of 16");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int dqk = a.dqk, p = a.p, ldq = L::ldq(dqk);
-  bf16* base = reinterpret_cast<bf16*>(smem);
-  bf16* sk = base;
-  bf16* sv = base + L::v_off(dqk);
-  bf16* sq = base + L::q_off(dqk);
-  bf16* sdo = base + L::do_off(dqk);
-  bf16* sphi = base + L::pds_off(dqk);
-  bf16* splo = sphi + kBQ * kLdp;
-  bf16* sdshi = splo + kBQ * kLdp;
-  bf16* sdslo = sdshi + kBQ * kLdp;
-  float* slse = reinterpret_cast<float*>(smem + L::scratch_bytes(dqk));
-  float* sdelta = slse + kBQ;
+// dk/dv: keys k0..k0+63 of image b. Warpgroup w computes the partial s^T and
+// dp^T over its half of Dk and Dv (wgmma m64n32k16, A = k or v resident, B =
+// the stage's q or do), the halves meet in shared memory, and both then hold
+// all of s^T and dp^T: p^T and ds^T become A fragments in registers (hi and
+// lo) for dv[:, w Dv/2..] += p^T . do and dk[:, cols] += ds^T . q, B the
+// stage's do and q, MN-major. dk's columns: w DKP/2.. (DKP >= 128), or all
+// 64 for the tile's k-step of queries w, the two sums meeting at the end.
+template <int DKP, int DV>
+__global__ void __launch_bounds__(kBfThreads, 1)
+    dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do, Args a, int stages) {
+  using L = DkvPlan<DKP, DV>;
+  constexpr int kBK = L::kBK, kBQ = L::kBQ;
+  constexpr int kDvN = DV / 2;                      // dv columns of a warpgroup
+  // dk is split by columns (DKP >= 128), or else by the tile's two k-steps of
+  // queries, each warpgroup then holding all 64 columns: with no branch
+  // around a wgmma (a branch that differs between warpgroups makes ptxas
+  // serialise every wgmma of the kernel)
+  constexpr bool kDkSplit = DKP >= 128;
+  constexpr int kDkN = kDkSplit ? DKP / 2 : DKP;  // dk columns of a warpgroup
+  static_assert(kBQ == 32, "a lane of warp 0 copies lse and delta of one query");
+  extern __shared__ char smem_raw[];
+  char* sk = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  char* sv = sk + L::kK;
+  char* ring = sv + L::kV;
+  float4* xbuf = reinterpret_cast<float4*>(ring + stages * L::kStage);
+  float* stats = reinterpret_cast<float*>(ring + stages * L::kStage + L::kX);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + stages * 2 * kBQ);
+  uint64_t* empty = full + stages;
+  uint64_t* kvbar = empty + stages;
 
-  const int b = blockIdx.y, k0 = blockIdx.x * kBK;
-  const bf16* q = static_cast<const bf16*>(a.q) + size_t(b) * p * dqk;
-  const bf16* k = static_cast<const bf16*>(a.k) + size_t(b) * p * dqk;
-  const bf16* v = static_cast<const bf16*>(a.v) + size_t(b) * p * DV;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + size_t(b) * p * DV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int rg = warp & 3, cg = warp >> 2;  // S, dP: queries 16 rg.., keys 16 cg..
-  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
-  const int brow = (lane & 7) + 8 * (lane >> 4), bcol = 8 * ((lane >> 3) & 1);
-  const int kmi = warp & 1, kn0 = warp >> 1;  // dk: key half kmi, n-tiles kn0 + 4 i
-  const int kntiles = dqk / 8;
-  const int dv0 = warp * (DV / kWarps);  // dv: this warp's columns
-
-  load_rows(sk, ldq, k, k0, kBK, dqk, p);
-  load_rows(sv, kLdv, v, k0, kBK, DV, p);
-
-  float accv[2][kNJ][4];  // keys 16 mi + g (+8), columns dv0 + 8 nj + 2t
-  float acck[8][4];       // keys 16 kmi + g (+8), columns 8 (kn0 + 4 i) + 2t
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < kNJ; ++nj)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) accv[mi][nj][r] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acck[i][r] = 0.f;
-
+  const int b = blockIdx.y, k0 = blockIdx.x * kBK, p = a.p;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int nq = (p + kBQ - 1) / kBQ;
-  for (int it = 0; it < nq; ++it) {
+  const bool issuer = threadIdx.x < 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 33);  // 32 lanes' lse/delta copies + the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Query tile it into stage s (warp 0): q and do by TMA, lse and delta by
+  // 4-byte cp.async (zero past P; P need not be a multiple of 4).
+  auto issue = [&](int it, int s) {
+    if (!kBfLoads && it >= stages) {  // probe: no copies after the first
+      mbar_arrive(&full[s]);
+      if (lane == 0) mbar_arrive(&full[s]);
+      return;
+    }
     const int i0 = it * kBQ;
-    load_rows(sq, ldq, q, i0, kBQ, dqk, p);
-    load_rows(sdo, kLdv, dout, i0, kBQ, DV, p);
-    cp_async_commit();
-    load_row_stats(slse, sdelta, a, b, i0, kBQ);
-    cp_async_wait_all();
-    __syncthreads();  // q, do, lse and delta of tile it are in
-
-    // 1. S and dP: queries 16 rg.., keys 16 cg..
-    float s[2][4], dp[2][4];
+    char* st = ring + s * L::kStage;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&full[s], L::kStage);
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int c = 0; c < DKP / 64; ++c)
+        tma_load_3d(st + c * kBQ * 128, &map_q, 64 * c, i0, b, &full[s]);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) s[nt][r] = dp[nt][r] = 0.f;
-    for (int kk = 0; kk < dqk; kk += 16) {
-      uint32_t af[4], bf[4];
-      ldmatrix_x4(af, sq + (16 * rg + arow) * ldq + kk + acol);
-      ldmatrix_x4(bf, sk + (16 * cg + brow) * ldq + kk + bcol);
-      mma_bf16(s[0], af, bf[0], bf[1]);
-      mma_bf16(s[1], af, bf[2], bf[3]);
+      for (int c = 0; c < DV / 64; ++c)
+        tma_load_3d(st + L::kQ + c * kBQ * 128, &map_do, 64 * c, i0, b, &full[s]);
     }
-#pragma unroll 4
-    for (int kk = 0; kk < DV; kk += 16) {
-      uint32_t af[4], bf[4];
-      ldmatrix_x4(af, sdo + (16 * rg + arow) * kLdv + kk + acol);
-      ldmatrix_x4(bf, sv + (16 * cg + brow) * kLdv + kk + bcol);
-      mma_bf16(dp[0], af, bf[0], bf[1]);
-      mma_bf16(dp[1], af, bf[2], bf[3]);
+    const bool valid = i0 + lane < p;
+    const size_t off = size_t(b) * p + (valid ? i0 + lane : 0);
+    float* sst = stats + s * 2 * kBQ;
+    cp_async4(sst + lane, a.lse + off, valid);
+    cp_async4(sst + kBQ + lane, a.delta + off, valid);
+    cp_async_arrive_noinc(&full[s]);
+  };
+  if (issuer) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kvbar, L::kK + L::kV);
+#pragma unroll
+      for (int c = 0; c < DKP / 64; ++c)
+        tma_load_3d(sk + c * kBK * 128, &map_k, 64 * c, k0, b, kvbar);
+#pragma unroll
+      for (int c = 0; c < DV / 64; ++c)
+        tma_load_3d(sv + c * kBK * 128, &map_v, 64 * c, k0, b, kvbar);
     }
-    // 2. p (0 past P, both ways) and ds to shared memory as hi/lo, [query][key]
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 16 * rg + g + 8 * h;
-      const float lse = slse[row], delta = sdelta[row];
-      const bool row_ok = i0 + row < p;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int col = 16 * cg + 8 * nt + 2 * t;
-        float pr[2], ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          pr[e] = row_ok && k0 + col + e < p ? expf(s[nt][2 * h + e] * a.scale - lse) : 0.f;
-          ds[e] = pr[e] * (dp[nt][2 * h + e] - delta);
-        }
-        store_hi_lo(sphi, splo, row * kLdp + col, pr[0], pr[1]);
-        store_hi_lo(sdshi, sdslo, row * kLdp + col, ds[0], ds[1]);
-      }
-    }
-    __syncthreads();  // p and ds are in
-
-    // 3. dv += p^T . do over this warp's columns; dk += ds^T . q over its tiles
-#pragma unroll
-    for (int kk = 0; kk < kBQ; kk += 16) {
-      uint32_t phi[2][4], plo[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        ldmatrix_x4_trans(phi[mi], sphi + (kk + brow) * kLdp + 16 * mi + bcol);
-        ldmatrix_x4_trans(plo[mi], splo + (kk + brow) * kLdp + 16 * mi + bcol);
-      }
-#pragma unroll
-      for (int njp = 0; njp < kNJ / 2; ++njp) {
-        uint32_t db[4];
-        ldmatrix_x4_trans(db, sdo + (kk + arow) * kLdv + dv0 + 16 * njp + acol);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(accv[mi][2 * njp], phi[mi], db[0], db[1]);
-          mma_bf16(accv[mi][2 * njp], plo[mi], db[0], db[1]);
-          mma_bf16(accv[mi][2 * njp + 1], phi[mi], db[2], db[3]);
-          mma_bf16(accv[mi][2 * njp + 1], plo[mi], db[2], db[3]);
-        }
-      }
-      uint32_t dhi[4], dlo[4];
-      ldmatrix_x4_trans(dhi, sdshi + (kk + brow) * kLdp + 16 * kmi + bcol);
-      ldmatrix_x4_trans(dlo, sdslo + (kk + brow) * kLdp + 16 * kmi + bcol);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int nt = kn0 + 4 * i;
-        if (nt < kntiles) {
-          uint32_t qb[2];
-          ldmatrix_x2_trans(qb, sq + (kk + (lane & 15)) * ldq + 8 * nt);
-          mma_bf16(acck[i], dhi, qb[0], qb[1]);
-          mma_bf16(acck[i], dlo, qb[0], qb[1]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with q, do, p and ds of tile it
+    for (int it = 0; it < stages && it < nq; ++it) issue(it, it);
   }
 
-  bf16* dk = static_cast<bf16*>(a.dk) + size_t(b) * p * dqk + 2 * t;
-  bf16* dv = static_cast<bf16*>(a.dv) + size_t(b) * p * DV + dv0 + 2 * t;
+  // accumulators: keys 16 warp + g (+8), columns 8 j + 2t (+1) of the
+  // warpgroup's dv and dk columns
+  float dv[kDvN / 2], dk[kDkN / 2];
+#pragma unroll
+  for (int i = 0; i < kDvN / 2; ++i) dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDkN / 2; ++i) dk[i] = 0.f;
+  const int dk_n0 = kDkSplit ? wg * kDkN : 0;
+  const int kc0 = wg * (DKP / 2), vc0 = wg * kDvN;  // this warpgroup's halves of Dk, Dv
+  mbar_wait(kvbar, 0);
+
+  for (int it = 0; it < nq; ++it) {
+    const int s = it % stages;
+    mbar_wait(&full[s], (it / stages) & 1);
+    const char* sq = ring + s * L::kStage;
+    const char* sdo = sq + L::kQ;
+    const float* sst = stats + s * 2 * kBQ;
+    if (kBfMath) {
+      // 1. partial s^T = k . q^T over Dk's half, dp^T = v . do^T over Dv's
+      float st[16], dpt[16];
+#pragma unroll
+      for (int i = 0; !kBfSdp && i < 16; ++i) st[i] = dpt[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kBfSdp && kk < DKP / 32; ++kk)
+        Wgmma<32>::ss<0>(st, kmajor_desc(sk, kBK, 0, kc0 + 16 * kk),
+                         kmajor_desc(sq, kBQ, 0, kc0 + 16 * kk), kk);
+#pragma unroll
+      for (int kk = 0; kBfSdp && kk < DV / 32; ++kk)
+        Wgmma<32>::ss<0>(dpt, kmajor_desc(sv, kBK, 0, vc0 + 16 * kk),
+                         kmajor_desc(sdo, kBQ, 0, vc0 + 16 * kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      // 2. the two halves meet (the same sums in both: addition commutes)
+      float4* mine = xbuf + wg * 8 * 128 + tid;
+      const float4* other = xbuf + (1 - wg) * 8 * 128 + tid;
+#pragma unroll
+      for (int j = 0; kBfExchange && j < 4; ++j) {
+        mine[j * 128] = make_float4(st[4 * j], st[4 * j + 1], st[4 * j + 2], st[4 * j + 3]);
+        mine[(4 + j) * 128] =
+            make_float4(dpt[4 * j], dpt[4 * j + 1], dpt[4 * j + 2], dpt[4 * j + 3]);
+      }
+      if (kBfExchange) named_sync(1, kBfThreads);
+#pragma unroll
+      for (int j = 0; kBfExchange && j < 4; ++j) {
+        const float4 o = other[j * 128], od = other[(4 + j) * 128];
+        const float so[4] = {o.x, o.y, o.z, o.w}, sd[4] = {od.x, od.y, od.z, od.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[4 * j + e] += so[e];
+          dpt[4 * j + e] += sd[e];
+        }
+      }
+      if (kBfExchange) named_sync(2, kBfThreads);  // both have read before either writes again
+      // 3. p^T = exp(scale s^T - lse), ds^T = p^T (dp^T - delta); query 8 j + 2t + e
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          const float lse = sst[col], delta = sst[kBQ + col];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 4 * j + 2 * h + e;
+            const float pr = expf(st[r] * a.scale - lse);
+            st[r] = pr;
+            dpt[r] = pr * (dpt[r] - delta);
+          }
+        }
+      }
+      // 4. dv += p^T . do, dk += ds^T . q: hi, then lo, for each k-step of 16 queries
+      uint32_t ph[2][4], pl[2][4], dh[2][4], dl[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        split_frag(st, kk, ph[kk], pl[kk]);
+        split_frag(dpt, kk, dh[kk], dl[kk]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kBfGrad && kk < 2; ++kk) {
+        const uint64_t bdo = mnmajor_desc(sdo, kBQ, 16 * kk, vc0);
+        Wgmma<kDvN>::template rs<1>(dv, ph[kk], bdo, 1);
+        Wgmma<kDvN>::template rs<1>(dv, pl[kk], bdo, 1);
+        if constexpr (kDkSplit) {
+          const uint64_t bq = mnmajor_desc(sq, kBQ, 16 * kk, dk_n0);
+          Wgmma<kDkN>::template rs<1>(dk, dh[kk], bq, 1);
+          Wgmma<kDkN>::template rs<1>(dk, dl[kk], bq, 1);
+        }
+      }
+      uint32_t ah[4], al[4];  // Dk 64: warpgroup w takes k-step w
+      if constexpr (!kDkSplit) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ah[i] = wg ? dh[1][i] : dh[0][i];
+          al[i] = wg ? dl[1][i] : dl[0][i];
+        }
+        const uint64_t bq = mnmajor_desc(sq, kBQ, 16 * wg, 0);
+        if (kBfGrad) {
+          Wgmma<kDkN>::template rs<1>(dk, ah, bq, 1);
+          Wgmma<kDkN>::template rs<1>(dk, al, bq, 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(ph);
+      fence_regs(pl);
+      fence_regs(dh);
+      fence_regs(dl);
+      if constexpr (!kDkSplit) {
+        fence_regs(ah);
+        fence_regs(al);
+      }
+    }
+    // 5. the stage is free once both warpgroups are done with it; warp 0 refills it
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (issuer && it + stages < nq) {
+      mbar_wait(&empty[s], (it / stages) & 1);
+      issue(it + stages, s);
+    }
+  }
+
+  if constexpr (!kDkSplit) {  // the warpgroups' halves of dk's sum meet (xbuf is free)
+    float4* x = xbuf + tid;
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < kDkN / 8; ++i)
+        x[i * 128] = make_float4(dk[4 * i], dk[4 * i + 1], dk[4 * i + 2], dk[4 * i + 3]);
+    }
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < kDkN / 8; ++i) {
+        const float4 o = x[i * 128];
+        dk[4 * i] += o.x;
+        dk[4 * i + 1] += o.y;
+        dk[4 * i + 2] += o.z;
+        dk[4 * i + 3] += o.w;
+      }
+    }
+  }
+  bf16* dvo = static_cast<bf16*>(a.dv) + size_t(b) * p * DV + vc0 + 2 * t;
+  bf16* dko = static_cast<bf16*>(a.dk) + size_t(b) * p * a.dqk + dk_n0 + 2 * t;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int key = k0 + 16 * mi + g + 8 * h;
-      if (key >= p) continue;
-#pragma unroll
-      for (int nj = 0; nj < kNJ; ++nj)
-        *reinterpret_cast<__nv_bfloat162*>(dv + size_t(key) * DV + 8 * nj) =
-            __floats2bfloat162_rn(accv[mi][nj][2 * h], accv[mi][nj][2 * h + 1]);
-    }
-    const int key = k0 + 16 * kmi + g + 8 * h;
+    const int key = k0 + 16 * warp + g + 8 * h;
     if (key >= p) continue;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int nt = kn0 + 4 * i;
-      if (nt < kntiles)
-        *reinterpret_cast<__nv_bfloat162*>(dk + size_t(key) * dqk + 8 * nt) =
-            __floats2bfloat162_rn(acck[i][2 * h] * a.scale, acck[i][2 * h + 1] * a.scale);
+    for (int j = 0; j < kDvN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dvo + size_t(key) * DV + 8 * j) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+    if (!kDkSplit && wg == 1) continue;
+#pragma unroll
+    for (int j = 0; j < kDkN / 8; ++j)
+      if (dk_n0 + 8 * j + 2 * t < a.dqk)
+        *reinterpret_cast<__nv_bfloat162*>(dko + size_t(key) * a.dqk + 8 * j) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
+  }
+}
+
+// dq: queries q0..q0+63 of image b, q and do resident; key tiles of 32
+// stream through the ring, warpgroup w taking tiles w, w + 2, ... (the
+// stages are even, so a warpgroup refills the stages it reads, with no
+// wait on the other). Each warpgroup holds a whole dq sum for the 64 rows
+// over its tiles: s = q . k^T and dp = do . v^T (m64n32k16, A resident, B
+// the stage's k or v), ds = p (dp - delta) in registers as hi and lo A
+// fragments of dq += ds . k (m64nDKPk16, B the stage's k, MN-major). The two
+// sums meet in shared memory at the end.
+template <int DKP, int DV>
+__global__ void __launch_bounds__(kBfThreads, 1)
+    dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do, Args a, int stages) {
+  using L = DqPlan<DKP, DV>;
+  constexpr int kBQ = L::kBQ, kBK = L::kBK;
+  extern __shared__ char smem_raw[];
+  char* sq = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  char* sdo = sq + L::kQ;
+  char* ring = sdo + L::kDo;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::ring(stages));
+  uint64_t* qbar = full + stages;
+
+  const int b = blockIdx.y, q0 = blockIdx.x * kBQ, p = a.p;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int nk = (p + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Key tile j into stage s (one thread).
+  auto issue = [&](int j, int s) {
+    if (!kBfLoads && j >= stages) {  // probe: no copies after the first
+      mbar_arrive(&full[s]);
+      return;
     }
+    char* st = ring + s * L::kStage;
+    mbar_arrive_expect_tx(&full[s], L::kStage);
+#pragma unroll
+    for (int c = 0; c < DKP / 64; ++c)
+      tma_load_3d(st + c * kBK * 128, &map_k, 64 * c, j * kBK, b, &full[s]);
+#pragma unroll
+    for (int c = 0; c < DV / 64; ++c)
+      tma_load_3d(st + L::kK + c * kBK * 128, &map_v, 64 * c, j * kBK, b, &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(qbar, L::kQ + L::kDo);
+#pragma unroll
+    for (int c = 0; c < DKP / 64; ++c)
+      tma_load_3d(sq + c * kBQ * 128, &map_q, 64 * c, q0, b, qbar);
+#pragma unroll
+    for (int c = 0; c < DV / 64; ++c)
+      tma_load_3d(sdo + c * kBQ * 128, &map_do, 64 * c, q0, b, qbar);
+    for (int j = 0; j < stages && j < nk; ++j) issue(j, j);
+  }
+
+  // this thread's rows: 16 warp + g + 8 h
+  float lse[2], delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    const size_t i = size_t(b) * p + (row < p ? row : 0);
+    lse[h] = row < p ? a.lse[i] : 0.f;
+    delta[h] = row < p ? a.delta[i] : 0.f;
+  }
+  float acc[DKP / 2];  // rows 16 warp + g (+8), columns 8 j + 2t (+1)
+#pragma unroll
+  for (int i = 0; i < DKP / 2; ++i) acc[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int j = wg; j < nk; j += 2) {
+    const int s = j % stages;
+    mbar_wait(&full[s], (j / stages) & 1);
+    const char* sk = ring + s * L::kStage;
+    const char* sv = sk + L::kK;
+    if (kBfMath) {
+      float sc[16], dp[16];
+#pragma unroll
+      for (int i = 0; !kBfSdp && i < 16; ++i) sc[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kBfSdp && kk < DKP / 16; ++kk)
+        Wgmma<32>::ss<0>(sc, kmajor_desc(sq, kBQ, 0, 16 * kk), kmajor_desc(sk, kBK, 0, 16 * kk),
+                         kk);
+#pragma unroll
+      for (int kk = 0; kBfSdp && kk < DV / 16; ++kk)
+        Wgmma<32>::ss<0>(dp, kmajor_desc(sdo, kBQ, 0, 16 * kk),
+                         kmajor_desc(sv, kBK, 0, 16 * kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // ds = p (dp - delta), p = exp(scale s - lse); row h, key 8 c + 2t + e
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = 4 * c + 2 * h + e;
+            dp[r] = expf(sc[r] * a.scale - lse[h]) * (dp[r] - delta[h]);
+          }
+      uint32_t dh[2][4], dl[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) split_frag(dp, kk, dh[kk], dl[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kBfGrad && kk < 2; ++kk) {
+        const uint64_t bk = mnmajor_desc(sk, kBK, 16 * kk, 0);
+        Wgmma<DKP>::template rs<1>(acc, dh[kk], bk, 1);
+        Wgmma<DKP>::template rs<1>(acc, dl[kk], bk, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(dh);
+      fence_regs(dl);
+    }
+    named_sync(1 + wg, 128);  // the warpgroup is done with stage s
+    if (tid == 0 && j + stages < nk) issue(j + stages, s);
+  }
+
+  // warpgroup 1's sum to shared memory (over the ring: every tile is in and
+  // read), added by warpgroup 0 and stored
+  __syncthreads();
+  float4* xs = reinterpret_cast<float4*>(ring) + tid;
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < DKP / 8; ++i)
+      xs[i * 128] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int i = 0; i < DKP / 8; ++i) {
+    const float4 o = xs[i * 128];
+    acc[4 * i] += o.x;
+    acc[4 * i + 1] += o.y;
+    acc[4 * i + 2] += o.z;
+    acc[4 * i + 3] += o.w;
+  }
+  bf16* dq = static_cast<bf16*>(a.dq) + size_t(b) * p * a.dqk + 2 * t;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (row >= p) continue;
+#pragma unroll
+    for (int j = 0; j < DKP / 8; ++j)
+      if (8 * j + 2 * t < a.dqk)
+        *reinterpret_cast<__nv_bfloat162*>(dq + size_t(row) * a.dqk + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] * a.scale, acc[4 * j + 2 * h + 1] * a.scale);
   }
 }
 
@@ -1042,11 +1511,88 @@ int launch(Kernel kernel, size_t smem, dim3 grid, const Args& a, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- bf16 host
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }
+  return fn;
+}
+
+// A 3-D map of a contiguous (n, p, width) bf16 array: boxes of 64 columns x
+// rows rows of one image, 128-byte swizzle, zeros past every edge.
+bool encode_rows(CUtensorMap* map, const void* ptr, int n, int p, int width, int rows) {
+  auto fn = encode_fn();
+  if (!fn) return false;
+  cuuint64_t dims[3] = {cuuint64_t(width), cuuint64_t(p), cuuint64_t(n)};
+  cuuint64_t strides[2] = {cuuint64_t(width) * 2, cuuint64_t(width) * 2 * cuuint64_t(p)};
+  cuuint32_t box[3] = {64, cuuint32_t(rows), 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int padded_dk(int dqk) { return dqk <= 64 ? 64 : dqk <= 128 ? 128 : 256; }
+
+// The bf16 kernels' choice: {rows a block, rows a streamed tile, stages,
+// dynamic shared memory bytes}.
+template <int DKP, int DV> void bf16_plan(bool dkv, int (&out)[4]) {
+  using K = DkvPlan<DKP, DV>;
+  using Q = DqPlan<DKP, DV>;
+  if (dkv) {
+    out[0] = K::kBK, out[1] = K::kBQ, out[2] = K::stages(), out[3] = K::bytes(K::stages());
+  } else {
+    out[0] = Q::kBQ, out[1] = Q::kBK, out[2] = Q::stages(), out[3] = Q::bytes(Q::stages());
+  }
+}
+template <int DV> void bf16_plan(bool dkv, int dqk, int (&out)[4]) {
+  switch (padded_dk(dqk)) {
+    case 64: return bf16_plan<64, DV>(dkv, out);
+    case 128: return bf16_plan<128, DV>(dkv, out);
+    default: return bf16_plan<256, DV>(dkv, out);
+  }
+}
+
+// Returns -1 where a base is not 16-byte aligned (TMA's rule), -2 where a
+// tensor map cannot be made.
+template <int DKP, int DV> int launch_bf16(const Args& a, bool dkv, cudaStream_t stream) {
+  for (const void* ptr : {a.q, a.k, a.v, a.dout})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return -1;
+  int plan[4];
+  bf16_plan<DKP, DV>(dkv, plan);
+  // q and do in boxes of the rows a block keeps (dq) or streams (dk/dv); k and v the other
+  const int rows_q = dkv ? plan[1] : plan[0], rows_k = dkv ? plan[0] : plan[1];
+  CUtensorMap mq, mk, mv, mdo;
+  if (!encode_rows(&mq, a.q, a.n, a.p, a.dqk, rows_q) ||
+      !encode_rows(&mk, a.k, a.n, a.p, a.dqk, rows_k) ||
+      !encode_rows(&mv, a.v, a.n, a.p, DV, rows_k) ||
+      !encode_rows(&mdo, a.dout, a.n, a.p, DV, rows_q))
+    return -2;
+  auto kernel = dkv ? &dkv_bf16_kernel<DKP, DV> : &dq_bf16_kernel<DKP, DV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan[3]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((a.p + plan[0] - 1) / plan[0], a.n), kBfThreads, plan[3], stream>>>(
+      mq, mk, mv, mdo, a, plan[2]);
+  return static_cast<int>(cudaGetLastError());
+}
+template <int DV> int launch_bf16(const Args& a, bool dkv, cudaStream_t s) {
+  switch (padded_dk(a.dqk)) {
+    case 64: return launch_bf16<64, DV>(a, dkv, s);
+    case 128: return launch_bf16<128, DV>(a, dkv, s);
+    default: return launch_bf16<256, DV>(a, dkv, s);
+  }
+}
+
 template <int DV>
 int launch_dq(const Args& a, bool bf16_io, cudaStream_t s) {
-  if (bf16_io)
-    return launch(dq_bf16_kernel<DV>, DqLayout<DV>::bytes(a.dqk),
-                  dim3((a.p + DqLayout<DV>::kBQ - 1) / DqLayout<DV>::kBQ, a.n), a, s);
+  if (bf16_io) return launch_bf16<DV>(a, false, s);
   using L = DqF32Layout<DV>;
   const dim3 grid((a.p + L::kBQ - 1) / L::kBQ, a.n);
   return a.dqk <= 64 ? launch(dq_f32_kernel<DV, 64>, L::bytes(a.dqk), grid, a, s)
@@ -1055,9 +1601,7 @@ int launch_dq(const Args& a, bool bf16_io, cudaStream_t s) {
 
 template <int DV>
 int launch_dkv(const Args& a, bool bf16_io, cudaStream_t s) {
-  if (bf16_io)
-    return launch(dkv_bf16_kernel<DV>, DkvLayout<DV>::bytes(a.dqk),
-                  dim3((a.p + DkvLayout<DV>::kBK - 1) / DkvLayout<DV>::kBK, a.n), a, s);
+  if (bf16_io) return launch_bf16<DV>(a, true, s);
   using L = DkvF32Layout<DV>;
   const dim3 grid((a.p + L::kBK - 1) / L::kBK, a.n);
   return a.dqk <= 64 ? launch(dkv_f32_kernel<DV, 64>, L::bytes(a.dqk), grid, a, s)
@@ -1116,6 +1660,24 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k, const void* v, 
   }
 }
 
+// The bf16 kernels' tiles for (dqk, dv), which 0 (dq) or 1 (dk/dv): out =
+// {rows a block, rows a streamed tile, stages, dynamic shared memory bytes}
+// (ops/attention.py::bwd_plan mirrors it). Returns -1 for a shape they do
+// not take.
+int flash_attention_bwd_plan(int which, int dqk, int dv, int* out) {
+  Args a;
+  if (!make_args(a, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, dqk, dv, 1.f))
+    return -1;
+  int plan[4];
+  switch (dv) {
+    case 128: bf16_plan<128>(which != 0, dqk, plan); break;
+    case 256: bf16_plan<256>(which != 0, dqk, plan); break;
+    default: bf16_plan<512>(which != 0, dqk, plan);
+  }
+  for (int i = 0; i < 4; ++i) out[i] = plan[i];
+  return 0;
+}
+
 }  // extern "C"
 
 #ifdef ATTN_BWD_MMA_PEAK
@@ -1130,6 +1692,24 @@ int attention_bwd_mma_peak(float* out, int blocks, int threads, int iters, int c
     mma_peak_kernel<1><<<blocks, threads, 0, s>>>(out, iters);
   else
     mma_peak_kernel<8><<<blocks, threads, 0, s>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blocks of threads (128, 256 or 384: one to three warpgroups), each
+// warpgroup chaining iters x 4 wgmma m64nNk16 bf16. mode: 0 N 256, A and B
+// (K-major) from shared memory; 1 N 256, A from registers; 2 as 1 with B
+// MN-major; 3 N 32 as 0; 4 N 64 as 2.
+int attention_bwd_wgmma_peak(float* out, int blocks, int threads, int iters, int mode,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: wgmma_peak_kernel<256, false, 0><<<blocks, threads, 0, s>>>(out, iters); break;
+    case 1: wgmma_peak_kernel<256, true, 0><<<blocks, threads, 0, s>>>(out, iters); break;
+    case 2: wgmma_peak_kernel<256, true, 1><<<blocks, threads, 0, s>>>(out, iters); break;
+    case 3: wgmma_peak_kernel<32, false, 0><<<blocks, threads, 0, s>>>(out, iters); break;
+    case 4: wgmma_peak_kernel<64, true, 1><<<blocks, threads, 0, s>>>(out, iters); break;
+    default: return -1;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,11 +30,14 @@ q_i . k_j) v_j``. The layout is the JAX package's, ``(N, P, C)``.
 
 On an H100 the kernels are bound by operations: at DANet's shape (P 32768,
 Dk 64, Dv 512) the forward does 1.237 TFLOP, 1.25 ms at the bf16
-tensor-core peak; the sources describe their designs and bounds. In f32
-the backward's five products run on the tensor cores in split TF32
-(each operand as a TF32 hi and lo, three ``mma.sync`` for each product,
-~21 bits kept of each operand), not on the CUDA cores' FMA; nothing on
-the route reads ``torch.backends``' TF32 switches.
+tensor-core peak; the sources describe their designs and bounds. In bf16
+the backward runs on ``wgmma`` over a ring of TMA stages, p and ds fed as
+hi + lo bf16 pairs; ``bwd_plan`` mirrors the tiles, stages and shared
+memory its kernels pick. In f32 the backward's five products run on the
+tensor cores in split TF32 (each operand as a TF32 hi and lo, three
+``mma.sync`` for each product, ~21 bits kept of each operand), not on the
+CUDA cores' FMA; nothing on the route reads ``torch.backends``' TF32
+switches.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ __all__ = [
     "flash_attention_bwd_dq",
     "flash_attention_bwd_plain",
     "flash_attention_plain",
+    "bwd_plan",
     "spatial_attention",
 ]
 
@@ -131,7 +135,46 @@ def _lib_bwd():
     lib.flash_attention_bwd_dkv_launch.argtypes = [ptr] * 8 + [i, i, i, i, f, i, ptr]
     lib.flash_attention_bwd_dq_launch.restype = i
     lib.flash_attention_bwd_dkv_launch.restype = i
+    lib.flash_attention_bwd_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.flash_attention_bwd_plan.restype = i
     return lib
+
+
+_SMEM_MAX = 232448  # an H100 block's dynamic shared memory
+
+
+def bwd_plan(which: str, dk: int, dv: int) -> dict:
+    """The bf16 backward kernels' tiles for (Dk, Dv), as
+    ``csrc/attention_bwd.cu`` picks them (``DqPlan``, ``DkvPlan``,
+    ``flash_attention_bwd_plan``): ``rows`` a block keeps (queries for
+    "dq", keys for "dkv"), ``tile`` rows a ring stage streams, ``stages``
+    and the dynamic shared memory ``smem`` in bytes. Dk is padded to 64,
+    128 or 256 columns; every tile is bf16, 2 bytes an element, with 1 KB
+    of slack to align the swizzled tiles and 8 bytes an mbarrier. dk/dv:
+    the resident k and v, per stage q, do, lse and delta, the warpgroups'
+    partial s^T and dp^T (2 x 128 threads x 32 f32); up to 4 stages. dq:
+    the resident q and do, the ring (at least warpgroup 1's dq sum, 128
+    threads x DKP/2 f32, which ends over it); 4 stages or 2 (even)."""
+    if which not in ("dq", "dkv") or dk % 16 or not 16 <= dk <= 256 or dv not in _DV:
+        raise ValueError(f"bwd_plan: no plan for {which!r}, Dk {dk}, Dv {dv}")
+    dkp = 64 if dk <= 64 else 128 if dk <= 128 else 256
+    if which == "dkv":
+        rows, tile = 64, 32
+
+        def size(stages):
+            return (1024 + 2 * rows * (dkp + dv) + stages * (2 * tile * (dkp + dv) + 2 * tile * 4)
+                    + 2 * 128 * tile * 4 + (2 * stages + 1) * 8)
+
+        stages = next(st for st in (4, 3, 2) if size(st) <= _SMEM_MAX or st == 2)
+    else:
+        rows, tile = 64, 32
+
+        def size(stages):
+            ring = max(stages * 2 * tile * (dkp + dv), 128 * (dkp // 2) * 4)
+            return 1024 + 2 * rows * (dkp + dv) + ring + (stages + 1) * 8
+
+        stages = 4 if size(4) <= _SMEM_MAX else 2
+    return dict(rows=rows, tile=tile, stages=stages, smem=size(stages))
 
 
 def _check(q, k, v, *more):
@@ -159,7 +202,8 @@ def _check(q, k, v, *more):
 
 def _raise_rc(name, rc):
     if rc != 0:
-        what = "unsupported shape" if rc == -1 else f"CUDA error {rc}"
+        what = {-1: "unsupported shape or alignment",
+                -2: "no TMA tensor map for these tensors"}.get(rc, f"CUDA error {rc}")
         raise RuntimeError(f"{name}: {what}")
 
 
