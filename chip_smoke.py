@@ -4,6 +4,7 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--kernels-only | --probe | --probe-dot
+                           | --flash-fwd [--baseline=<path>] | --flash-fwd-probe
                            | --flash-bwd [--baseline=<path>]
                            | --flash-bwd-probe[=f32|bf16]]
 
@@ -24,8 +25,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    output-stride-16 middle layer, a decoder layer and a 1536-channel
    exit-flow layer (bf16 / f32 products); the flash-attention forward
    (``ops/attention.py``) at DANet's and OCNet's shapes (P = 32768, and
-   the pyramid's N=4/P=8192 and N=9/P=3698) and two small ragged cases,
-   out and lse, beside ``scaled_dot_product_attention``'s time; the
+   the pyramid's N=4/P=8192 and N=9/P=3698), their train shapes (N=16,
+   P=5184) and two small ragged cases, out and lse against the plain
+   version over the bf16 kernel's key tiles (``fwd_plan``), beside
+   ``scaled_dot_product_attention``'s time; before it, the bf16 forward's
+   SASS must hold ``HGMMA`` and ``UTMALDG`` and its plan
+   (``flash_attention_plan``) must equal ``ops/attention.py::fwd_plan``
+   at every (Dk, Dv); the
    flash-attention backward (dq and dk/dv kernels) at DANet's and OCNet's
    train shapes (N=16, P=5184), the pyramid's N=9/P=3698 and a ragged
    case, against ``flash_attention_bwd_plain``, beside the backward of
@@ -94,6 +100,16 @@ of a block's cycles that the taps, the products and the epilogue take.
 ``--probe-dot`` neither: it times ``csrc/probe_dot.cu`` and its probe
 builds, each with a phase left out, at the probe's two shapes, and prints
 the median phase stamps of a traced launch.
+``--flash-fwd`` neither: the rehearsal after an edit of
+``csrc/attention.cu``. It builds that source alone, prints ptxas's
+registers and spills of each kernel, runs the forward's SASS and plan
+checks and phase 3's flash-forward check (both dtypes, every case);
+``--baseline=<path>`` adds, at each case in bf16, the forward of another
+``attention.cu`` (built beside it; the C interface is the same) timed
+against this source's in turns (old, new, new, old), its results held to
+this source's. ``--flash-fwd-probe`` times the bf16 forward's probe
+builds (``FLASH_FWD_BUILDS``: a phase left out, wrong results, times
+only) in turns at DANet's and OCNet's serving and train shapes.
 ``--flash-bwd`` neither: the rehearsal after an edit of
 ``csrc/attention_bwd.cu``. It builds that source alone, prints ptxas's
 registers and spills of each kernel, runs the SASS and tile checks above
@@ -455,13 +471,16 @@ def check_sepconv_kernels(torch, sepconv, card, dev, gen):
 
 # ----------------------------------------------------------- flash attention
 # The shapes the path gives the kernel at 1024x2048, output stride 8
-# (c4 128x256, P = 32768), and two small ragged cases that run the
-# kernel's other value widths (128, 256). ``main``: the line's.
+# (c4 128x256, P = 32768), the train shapes (576x576 crops, c4 72x72,
+# P = 5184, batch 16), and two small ragged cases that run the kernel's
+# other value widths (128, 256). ``main``: the line's.
 FLASH_CASES = [
     dict(what="DANet PAM", n=1, p=32768, dk=64, dv=512, scale=1.0, main=True),
     dict(what="OCNet base / pyramid level 1", n=1, p=32768, dk=256, dv=512, scale=256 ** -0.5),
     dict(what="OCNet pyramid level 2", n=4, p=8192, dk=256, dv=512, scale=256 ** -0.5),
     dict(what="OCNet pyramid level 3", n=9, p=3698, dk=256, dv=512, scale=256 ** -0.5),
+    dict(what="DANet PAM, train", n=16, p=5184, dk=64, dv=512, scale=1.0),
+    dict(what="OCNet base, train", n=16, p=5184, dk=256, dv=512, scale=256 ** -0.5),
     dict(what="ragged", n=2, p=600, dk=32, dv=128, scale=1.0),
     dict(what="ragged, Dv 256", n=1, p=1000, dk=48, dv=256, scale=48 ** -0.5),
 ]
@@ -476,6 +495,16 @@ def flash_bound(case, itemsize, dname):
     t_bytes = (n * p * (2 * dk + 2 * dv) * itemsize + n * p * 4) / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
             1e3 * n * p * p / SFU_EXP_PER_S)
+
+
+def flash_split_bound(case, dname):
+    """ms of the bf16 kernel's own work at its type's peak: s = q . k^T
+    is recomputed for each of the ``split`` blocks Dv is split over
+    (``fwd_plan``), 2 N P^2 (split Dk + Dv) FLOPs; stated beside the true
+    bound, never in its place."""
+    n, p, dk, dv = case["n"], case["p"], case["dk"], case["dv"]
+    split = 1 if dname == "float32" else max(1, dv // 256)
+    return 1e3 * 2 * n * p * p * (split * dk + dv) / PEAK_OPS[dname]
 
 
 def sdpa_library(torch, q, k, v, scale):
@@ -499,18 +528,19 @@ def sdpa_library(torch, q, k, v, scale):
 
 def check_flash_kernel(torch, attention, card, dev, gen):
     """Every case in f32 and bf16: the wrapper (which launches the kernel)
-    against the plain version over key blocks of the kernel's bf16 tile
-    (64), so that p rounds at the same running max; times of the kernel,
-    the plain version and ``scaled_dot_product_attention``."""
+    against the plain version over key blocks of the bf16 kernel's tile
+    (``fwd_plan``), so that p rounds at the same running max; times of the
+    kernel, the plain version and ``scaled_dot_product_attention``."""
     results = {}
     for case in FLASH_CASES:
         n, p, dk, dv = case["n"], case["p"], case["dk"], case["dv"]
+        block_k = attention.fwd_plan(dk, dv)["tile"]
         for dt in (torch.float32, torch.bfloat16):
             dname = dtype_name(dt)
             q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
             v = torch.randn(n, p, dv, generator=gen).to(dev, dt)
             scale = case["scale"]
-            ref, ref_lse = attention.flash_attention_plain(q, k, v, scale, block_k=64)
+            ref, ref_lse = attention.flash_attention_plain(q, k, v, scale, block_k=block_k)
             before = attention.flash_attention.launches
             got, lse = attention.flash_attention(q, k, v, scale)
             torch.cuda.synchronize()
@@ -537,9 +567,10 @@ def check_flash_kernel(torch, attention, card, dev, gen):
             out, out_lse = torch.empty_like(got), torch.empty_like(lse)
             kernel_ms = median_ms(torch, lambda: attention._launch(q, k, v, scale, out, out_lse))
             plain_ms = median_ms(torch, lambda: attention.flash_attention_plain(
-                q, k, v, scale, block_k=64), n=5, warmup=1)
+                q, k, v, scale, block_k=block_k), n=5, warmup=1)
             library_ms, backend = sdpa_library(torch, q, k, v, scale)
             bound_ms, bound_by, exp_ms = flash_bound(case, q.element_size(), dname)
+            split_ms = flash_split_bound(case, dname)
             lib = "refused" if library_ms is None else f"{library_ms:.4f} ms"
             print(f"{card} flash_attention {dname} {case['what']} N={n} P={p} Dk={dk} Dv={dv} "
                   f"scale={scale:.6g}: max|err| {max_err:.6g} (max|ref| {max_ref:.6g}), "
@@ -547,13 +578,15 @@ def check_flash_kernel(torch, attention, card, dev, gen):
                   f"{lse_err:.6g} (max|lse| {lse_ref:.6g}) [{rule}; lse <= 1e-4 max|lse|: "
                   f"{'ok' if ok else 'FAIL'}]; kernel {kernel_ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib} ({backend}), bound "
-                  f"{bound_ms:.4f} ms ({bound_by}; exponentials {exp_ms:.4f} ms)")
+                  f"{bound_ms:.4f} ms ({bound_by}; exponentials {exp_ms:.4f} ms; with the Dv "
+                  f"split's recomputed q.k^T {split_ms:.4f} ms)")
             if not ok:
                 fail(f"flash_attention {dname} ({case['what']}) disagrees with its plain version")
             results.setdefault(case["what"], {})[dname] = dict(
                 max_abs_err=max_err, lse_max_abs_err=lse_err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, exp_bound_ms=exp_ms,
-                library_ms=library_ms, library_backend=backend, shape=[n, p, dk, dv],
+                split_bound_ms=split_ms, library_ms=library_ms, library_backend=backend,
+                shape=[n, p, dk, dv],
                 main=bool(case.get("main")))
             del q, k, v, ref, ref_lse, got, lse, err, out, out_lse
         torch.cuda.empty_cache()
@@ -732,22 +765,31 @@ def check_bwd_plans(attention, card):
                 fail(f"bwd_plan({which!r}, {case['dk']}, {case['dv']}) differs from the source's")
 
 
-def baseline_bwd_lib(path):
-    """The library of another ``attention_bwd.cu`` at ``path`` (same C
-    interface), built with the port's flags beside the port's own."""
+def baseline_lib(path, name):
+    """The library of another ``csrc/<name>.cu`` at ``path`` (same C
+    interface), built with the port's flags beside the port's own; its
+    quoted includes are looked up beside it, then in ``csrc/``."""
     import ctypes
     import hashlib
 
     from segmentron_tpu_torch.ops import kernels
 
     src = open(path, "rb").read()
-    out = kernels.BUILD_DIR / f"libattention_bwd_baseline-{hashlib.sha256(src).hexdigest()[:16]}.so"
+    digest = hashlib.sha256(src + kernels._headers(src)).hexdigest()[:16]
+    out = kernels.BUILD_DIR / f"lib{name}_baseline-{digest}.so"
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([kernels._nvcc(), *kernels._NVCC_FLAGS, "-o", str(out), path],
-                          capture_output=True, text=True)
+    proc = subprocess.run([kernels._nvcc(), *kernels._NVCC_FLAGS, "-I", str(kernels._SRC),
+                           "-o", str(out), path], capture_output=True, text=True)
     if proc.returncode != 0:
         fail(f"nvcc failed for the baseline {path}:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+def baseline_bwd_lib(path):
+    """The library of another ``attention_bwd.cu`` at ``path``."""
+    import ctypes
+
+    lib = baseline_lib(path, "attention_bwd")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_bwd_dq_launch.argtypes = [ptr] * 7 + [i, i, i, i, f, i, ptr]
     lib.flash_attention_bwd_dkv_launch.argtypes = [ptr] * 8 + [i, i, i, i, f, i, ptr]
@@ -834,6 +876,177 @@ def flash_bwd_only(torch, attention, card):
     return 0
 
 
+def check_fwd_plans(attention, card):
+    """The bf16 forward's tiles, stages, Dv split and shared memory as the
+    source picks them (``flash_attention_plan``) against their mirror
+    ``ops/attention.py::fwd_plan``, at every (Dk, Dv) the kernel takes;
+    each case's plan printed."""
+    import ctypes
+
+    keys = ("rows", "tile", "stages", "split", "smem")
+    shown = {(c["dk"], c["dv"]) for c in FLASH_CASES}
+    for dk in range(16, 257, 16):
+        for dv in attention._DV:
+            out = (ctypes.c_int * 5)()
+            rc = attention._lib().flash_attention_plan(dk, dv, out)
+            src, mirror = dict(zip(keys, out)), attention.fwd_plan(dk, dv)
+            if (dk, dv) in shown or src != mirror:
+                print(f"{card} flash_attention bf16 plan Dk {dk} Dv {dv}: {src}"
+                      f"{'' if src == mirror else f' (mirror {mirror})'}")
+            if rc != 0 or src != mirror:
+                fail(f"fwd_plan({dk}, {dv}) differs from the source's")
+    print(f"{card} flash_attention bf16 plan: flash_attention_plan equals fwd_plan at all "
+          f"{16 * len(attention._DV)} (Dk, Dv)")
+
+
+def check_fwd_sass(card):
+    """The bf16 forward kernel's SASS: each specialisation must hold HGMMA
+    (wgmma) and UTMALDG (TMA tile loads)."""
+    counts = print_sass_mix(card, "attention", r"flash_bf16_kernel", top=10)
+    if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
+        fail("the bf16 flash-forward kernel lacks HGMMA or UTMALDG instructions")
+
+
+def compare_flash_fwd(torch, attention, card, dev, gen, path):
+    """At each case in bf16, the forward of the baseline source ``path``
+    (another ``attention.cu``, same C interface) and of this one, each
+    median of 20, in turns old, new, new, old; the baseline's out and lse
+    held to this source's at the card's bf16 bar. Returns {case: {"old":
+    [ms, ms], "new": [ms, ms]}}."""
+    import ctypes
+
+    old_lib = baseline_lib(path, "attention")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    old_lib.flash_attention_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, i,
+                                               ctypes.c_float, i, ptr]
+    old_lib.flash_attention_launch.restype = i
+    results = {}
+    for case in FLASH_CASES:
+        n, p, dk, dv, scale = case["n"], case["p"], case["dk"], case["dv"], case["scale"]
+        dt = torch.bfloat16
+        q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
+        v = torch.randn(n, p, dv, generator=gen).to(dev, dt)
+        got = {ver: (torch.empty_like(v), torch.empty((n, p), dtype=torch.float32, device=dev))
+               for ver in ("old", "new")}
+
+        def run(ver):
+            out, lse = got[ver]
+            if ver == "new":
+                return attention._launch(q, k, v, scale, out, lse)
+            rc = old_lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), n, p,
+                dk, dv, float(scale), 1, torch.cuda.current_stream().cuda_stream)
+            attention._raise_rc("baseline flash_attention_launch", rc)
+
+        times = {"old": [], "new": []}
+        for ver in ("old", "new", "new", "old"):
+            times[ver].append(median_ms(torch, lambda: run(ver)))
+        torch.cuda.synchronize()
+        (a, la), (b, lb) = got["old"], got["new"]
+        err = (a.float() - b.float()).abs()
+        ok = (err.max().item() <= 3e-2 * b.float().abs().max().item()
+              and err.mean().item() <= 2e-3 * b.float().abs().mean().item()
+              and (la - lb).abs().max().item() <= 1e-4 * lb.abs().max().item())
+        if not ok:
+            fail(f"baseline flash_attention bf16 {case['what']}: out or lse differ beyond the bar")
+        old_ms, new_ms = statistics.mean(times["old"]), statistics.mean(times["new"])
+        print(f"{card} flash_attention bf16 {case['what']} N={n} P={p} Dk={dk} Dv={dv}: baseline "
+              f"{path} against this source, old/new/new/old: old "
+              f"{' '.join(f'{x:.4f}' for x in times['old'])} ms, new "
+              f"{' '.join(f'{x:.4f}' for x in times['new'])} ms; old / new {old_ms / new_ms:.2f}")
+        results[case["what"]] = times
+        del q, k, v, got, a, b, la, lb, err
+        torch.cuda.empty_cache()
+    return results
+
+
+def flash_fwd_only(torch, attention, card):
+    """``--flash-fwd``: build ``csrc/attention.cu`` alone, print its ptxas
+    report, check the bf16 kernel's SASS and plans, check the forward at
+    every case in both dtypes, optionally against a baseline source."""
+    from segmentron_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    build(["attention"])
+    print(f"{card} build attention: {time.perf_counter() - t0:.2f} s")
+    print_ptxas(card, "attention")
+    check_fwd_sass(card)
+    check_fwd_plans(attention, card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
+    results = {"flash_attention": check_flash_kernel(torch, attention, card, dev, gen)}
+    for arg in sys.argv[1:]:
+        if arg.startswith("--baseline="):
+            results["baseline"] = compare_flash_fwd(torch, attention, card, dev, gen,
+                                                    arg.split("=", 1)[1])
+    print(json.dumps(results))
+    return 0
+
+
+# Probe builds of csrc/attention.cu (--flash-fwd-probe): wrong results, times only.
+FLASH_FWD_BUILDS = {
+    "full": (),
+    "no loads": ("-DATTN_FWD_NO_LOADS",),
+    "loads only": ("-DATTN_FWD_LOADS_ONLY",),
+    "no softmax": ("-DATTN_FWD_NO_SOFTMAX",),
+    "no loads, no softmax": ("-DATTN_FWD_NO_LOADS", "-DATTN_FWD_NO_SOFTMAX"),
+}
+
+
+def flash_fwd_probe(torch, attention, card):
+    """``--flash-fwd-probe``: the bf16 forward and its probe builds
+    (``FLASH_FWD_BUILDS``, built in parallel) at DANet's and OCNet's
+    serving and train shapes, timed in turns (each build, then each again
+    in reverse order; median of 20 each); the SASS opcode counts."""
+    import ctypes
+
+    from segmentron_tpu_torch.ops import kernels
+
+    procs, libs = {}, {}
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    for name, flags in FLASH_FWD_BUILDS.items():
+        kernels.DEFINES["attention"] = flags
+        out = kernels._target("attention")
+        if not out.exists():
+            procs[name] = (subprocess.Popen(
+                [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags, "-o", str(out),
+                 str(kernels._SRC / "attention.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), out)
+        libs[name] = out
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for attention.cu {name}:\n{log}")
+    print(f"{card} probe builds of attention.cu: {time.perf_counter() - t0:.2f} s")
+    kernels.DEFINES["attention"] = ()
+    loaded = {}
+    for name, path in libs.items():
+        kernels._loaded["attention"] = ctypes.CDLL(str(path))
+        loaded[name] = attention._lib()
+    print_sass_mix(card, "attention", r"flash_bf16_kernel")
+    dev, gen, results = torch.device("cuda"), torch.Generator().manual_seed(0), {}
+    for case in FLASH_CASES[:2] + FLASH_CASES[4:6]:
+        n, p, dk, dv, scale = case["n"], case["p"], case["dk"], case["dv"], case["scale"]
+        q, k = (torch.randn(n, p, dk, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+        v = torch.randn(n, p, dv, generator=gen).to(dev, torch.bfloat16)
+        out, lse = torch.empty_like(v), torch.empty((n, p), dtype=torch.float32, device=dev)
+        times = {}
+        for name in [*loaded, *reversed(loaded)]:
+            kernels._loaded["attention"] = loaded[name]
+            times.setdefault(name, []).append(median_ms(
+                torch, lambda: attention._launch(q, k, v, scale, out, lse)))
+        torch.cuda.synchronize()
+        print(f"{card} flash_attention bf16 {case['what']} probe builds, ms (in turns): "
+              + "; ".join(f"{b} {' '.join(f'{x:.4f}' for x in t)}" for b, t in times.items()))
+        results[case["what"]] = times
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    kernels._loaded["attention"] = loaded["full"]
+    print(json.dumps(results))
+    return 0
+
+
 # Probe builds of csrc/attention_bwd.cu (--flash-bwd-probe); "cvt" gives the
 # kernels' results, the others wrong ones (times only).
 FLASH_BWD_BUILDS = {
@@ -894,13 +1107,15 @@ def print_sass_mix(card, name, kernels_re, top=14):
             continue
         ops = collections.Counter(m.group(1) for m in re.finditer(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T] )?([A-Z][A-Z0-9_]*)", part))
-        short = re.search(r"((?:dq|dkv)_(?:f32|bf16)_kernel)(?:ILi(\d+)ELi(\d+)E)?", fn)
+        short = re.search(r"((?:dq|dkv|flash)_(?:f32|bf16)_kernel)(?:ILi(\d+)ELi(\d+)E)?", fn)
         label = (f"{short.group(1)}<{short.group(2)}, {short.group(3)}>"
                  if short and short.group(2) else short.group(1) if short else fn[:60])
         counts[label] = ops
+        # an HGMMA that sets gsb0 is waited on before the next issues
+        waited = len(re.findall(r"HGMMA[^;]*gsb0", part))
         print(f"{card} sass {name} {label}: {sum(ops.values())} instructions: "
               + ", ".join(f"{op} {c}" for op, c in ops.most_common(top))
-              + f"; HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}")
+              + f"; HGMMA {ops['HGMMA']} ({waited} with gsb0), UTMALDG {ops['UTMALDG']}")
     return counts
 
 
@@ -1598,10 +1813,13 @@ def print_ptxas(card, name):
             # the mangled name's kernel and its template arguments (Lb1E: int8;
             # the flash backward's Dv and, in f32, the Dk its sums are sized for)
             m = re.search(r"\d(probe_dot_(?:wgmma|mma_sync))(?:ILb([01])E)?", ln)
-            mb = re.search(r"\d((?:dq|dkv)_(?:f32|bf16)_kernel)ILi(\d+)E(?:Li(\d+)E)?", ln)
+            mb = re.search(r"\d((?:dq|dkv|flash)_(?:f32|bf16)_kernel)ILi(\d+)E(?:Li(\d+)E)?",
+                           ln)
             if m:
                 arg = m.group(2) and ("<int8>" if m.group(2) == "1" else "<bf16>")
                 fn = m.group(1) + (arg or "")
+            elif mb and mb.group(1) == "flash_bf16_kernel":  # <padded Dk, Dv of a block>
+                fn = f"{mb.group(1)}<Dk padded to {mb.group(2)}, {mb.group(3)} Dv columns a block>"
             elif mb and "bf16" in mb.group(1):  # <padded Dk, Dv>
                 fn = f"{mb.group(1)}<Dk padded to {mb.group(2)}, Dv {mb.group(3)}>"
             elif mb:
@@ -1611,6 +1829,8 @@ def print_ptxas(card, name):
                 fn = ln
         elif fn and ("registers" in ln or "spill" in ln or "Performance" in ln):
             print(f"{card} ptxas {name} {fn}: {ln.split(':', 1)[-1].strip()}")
+        elif "Performance" in ln or "warning" in ln:
+            print(f"{card} ptxas {name}: {ln.strip()}")
 
 
 def check_probe_dot(torch, probe_dot, card, dev, gen):
@@ -1874,6 +2094,10 @@ def main():
         return probe_dot_breakdown(torch, card)
     if "--flash-bwd" in sys.argv[1:]:
         return flash_bwd_only(torch, attention, card)
+    if "--flash-fwd" in sys.argv[1:]:
+        return flash_fwd_only(torch, attention, card)
+    if "--flash-fwd-probe" in sys.argv[1:]:
+        return flash_fwd_probe(torch, attention, card)
     for arg in sys.argv[1:]:
         if arg.startswith("--flash-bwd-probe"):
             which = arg.partition("=")[2]
@@ -1917,6 +2141,9 @@ def main():
     print_ptxas(card, "attention_bwd")
     check_bf16_sass(card)
     check_bwd_plans(attention, card)
+    print_ptxas(card, "attention")
+    check_fwd_sass(card)
+    check_fwd_plans(attention, card)
     flash_bwd_results = check_flash_bwd_kernels(torch, attention, card, dev, gen)
     flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)

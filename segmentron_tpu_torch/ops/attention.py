@@ -9,11 +9,12 @@ q_i . k_j) v_j``. The layout is the JAX package's, ``(N, P, C)``.
   kernel (``csrc/attention.cu``), which replaces the Pallas kernel
   ``_flash_kernel`` (``_attention_pallas``). It never holds the affinity
   and returns ``(out, lse)``, the log-sum-exp of each query row in f32 (the
-  backward will need it). For a CUDA tensor it launches the kernel or
+  backward needs it). For a CUDA tensor it launches the kernel or
   raises; for a CPU tensor it computes ``flash_attention_plain``, the same
   function in plain PyTorch with the kernel's roundings (``p`` cast to
-  ``v.dtype`` before the product). ``flash_attention.launches`` counts
-  kernel launches.
+  ``v.dtype`` before the product; with ``block_k`` =
+  ``fwd_plan(...)["tile"]`` it rounds ``p`` at the bf16 kernel's running
+  max). ``flash_attention.launches`` counts kernel launches.
 - ``flash_attention_bwd``: the backward, two hand-written CUDA kernels
   (``csrc/attention_bwd.cu``) that replace the Pallas kernels
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``
@@ -31,9 +32,12 @@ q_i . k_j) v_j``. The layout is the JAX package's, ``(N, P, C)``.
 On an H100 the kernels are bound by operations: at DANet's shape (P 32768,
 Dk 64, Dv 512) the forward does 1.237 TFLOP, 1.25 ms at the bf16
 tensor-core peak; the sources describe their designs and bounds. In bf16
-the backward runs on ``wgmma`` over a ring of TMA stages, p and ds fed as
-hi + lo bf16 pairs; ``bwd_plan`` mirrors the tiles, stages and shared
-memory its kernels pick. In f32 the backward's five products run on the
+the forward runs on ``wgmma`` over TMA rings of k and v, Dv 512 split
+over the grid in two halves of 256 columns; ``fwd_plan`` mirrors its
+tiles, stages and shared memory. In bf16 the backward runs on ``wgmma``
+over a ring of TMA stages, p and ds fed as hi + lo bf16 pairs;
+``bwd_plan`` mirrors the tiles, stages and shared memory its kernels
+pick. In f32 the backward's five products run on the
 tensor cores in split TF32 (each operand as a TF32 hi and lo, three
 ``mma.sync`` for each product, ~21 bits kept of each operand), not on the
 CUDA cores' FMA; nothing on the route reads ``torch.backends``' TF32
@@ -57,6 +61,7 @@ __all__ = [
     "flash_attention_bwd_plain",
     "flash_attention_plain",
     "bwd_plan",
+    "fwd_plan",
     "spatial_attention",
 ]
 
@@ -125,6 +130,8 @@ def _lib():
     lib.flash_attention_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, i,
                                            ctypes.c_float, i, ptr]
     lib.flash_attention_launch.restype = i
+    lib.flash_attention_plan.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.flash_attention_plan.restype = i
     return lib
 
 
@@ -175,6 +182,28 @@ def bwd_plan(which: str, dk: int, dv: int) -> dict:
 
         stages = 4 if size(4) <= _SMEM_MAX else 2
     return dict(rows=rows, tile=tile, stages=stages, smem=size(stages))
+
+
+def fwd_plan(dk: int, dv: int) -> dict:
+    """The bf16 forward kernel's tiles for (Dk, Dv), as
+    ``csrc/attention.cu`` picks them (``FwdPlan``, ``flash_attention_plan``):
+    ``rows`` of queries a block keeps (two warpgroups of 64), ``tile`` keys
+    a ring slot streams, ``stages`` slots in each of the k and v rings,
+    ``split`` the blocks Dv is split over (Dv 512: two halves of 256) and
+    the dynamic shared memory ``smem`` in bytes: 1 KB of slack to align the
+    swizzled tiles, q, the rings of k and of the block's v columns (bf16,
+    Dk padded to 64, 128 or 256) and 8 bytes an mbarrier (a full and an
+    empty one a slot of each ring, one for q); up to 4 slots that fit."""
+    if dk % 16 or not 16 <= dk <= 256 or dv not in _DV:
+        raise ValueError(f"fwd_plan: no plan for Dk {dk}, Dv {dv}")
+    dkp = 64 if dk <= 64 else 128 if dk <= 128 else 256
+    rows, tile, dvb = 128, 64, min(dv, 256)
+
+    def size(stages):
+        return 1024 + 2 * rows * dkp + stages * 2 * tile * (dkp + dvb) + (4 * stages + 1) * 8
+
+    stages = next(st for st in (4, 3, 2) if size(st) <= _SMEM_MAX or st == 2)
+    return dict(rows=rows, tile=tile, stages=stages, split=dv // dvb, smem=size(stages))
 
 
 def _check(q, k, v, *more):

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside the
 package (``.gitignore`` lists it) the first time it is needed, then
-loaded with ``ctypes``. The hash is of the source, so an edited source
-is rebuilt. Nothing is built or loaded at import time. ``DEFINES`` maps a
+loaded with ``ctypes``. The hash is of the source and of the headers it
+includes from ``csrc/`` (``#include "<name>.cuh"``), so an edited source or
+header is rebuilt. Nothing is built or loaded at import time. ``DEFINES`` maps a
 source to extra compiler flags (a probe build); they enter the hash.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,9 +45,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _headers(source: bytes) -> bytes:
+    """The bytes of the ``csrc/`` headers that ``source`` includes with
+    quotes, in the order it names them."""
+    names = re.findall(rb'^\s*#\s*include\s+"([^"]+)"', source, flags=re.M)
+    return b"".join((_SRC / n.decode()).read_bytes() for n in names)
+
+
 def _target(name: str) -> Path:
     flags = " ".join(DEFINES.get(name, ())).encode()
-    digest = hashlib.sha256((_SRC / f"{name}.cu").read_bytes() + flags).hexdigest()[:16]
+    source = (_SRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source + _headers(source) + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
