@@ -27,11 +27,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (``ops/attention.py``) at DANet's and OCNet's shapes (P = 32768, and
    the pyramid's N=4/P=8192 and N=9/P=3698), their train shapes (N=16,
    P=5184) and two small ragged cases, out and lse against the plain
-   version over the bf16 kernel's key tiles (``fwd_plan``), beside
-   ``scaled_dot_product_attention``'s time; before it, the bf16 forward's
-   SASS must hold ``HGMMA`` and ``UTMALDG`` and its plan
-   (``flash_attention_plan``) must equal ``ops/attention.py::fwd_plan``
-   at every (Dk, Dv); the
+   version over the kernel's key tiles (``fwd_plan``), beside
+   ``scaled_dot_product_attention``'s time; in f32 the route is the split
+   pass (``flash_attention_split``, its pieces bitwise against
+   ``split_pieces_plain``) and the kernel on q's and k's bf16 pieces and
+   f32 v, timed whole and each alone, held also at 2.5e-5 of max|ref| (lse
+   1e-5 of max|lse|), beside two bounds: its own work (six bf16 products
+   for q.k^T at the bf16 peak, with and without the Dv split, beside p.v
+   on the FMA units) and all of it on CUDA-core FMA; before it, both
+   forward kernels' SASS must hold ``HGMMA`` and ``UTMALDG``, the f32
+   kernel's no function call, no ``HGMMA`` waited on alone and no spill,
+   and their plans (``flash_attention_plan``) must equal
+   ``ops/attention.py::fwd_plan`` at every (Dk, Dv) in both dtypes; the
    flash-attention backward (dq and dk/dv kernels) at DANet's and OCNet's
    train shapes (N=16, P=5184), the pyramid's N=9/P=3698 and a ragged
    case, against ``flash_attention_bwd_plain``, beside the backward of
@@ -76,7 +83,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    serving YAMLs on the bf16 path (``TPU.INT8_RESNET False``), full
    width, random weights with PAM's and CAM's ``gamma`` set to
    ``GAMMA``: in f32 the flash-kernel route against the dense route
-   (argmax >= 0.995; DANet, OCNet base and pyramid); DANet and OCNet
+   (argmax >= 0.995; DANet, OCNet base and pyramid; one split pass and
+   one kernel launch a flash attention), the f32 forward timed and
+   profiled for the flash forward's share of it; DANet and OCNet
    base through the ``Evaluator`` in bf16 with the counters read around
    it (one launch a forward), the bf16 kernel route's argmax held to the
    f32 reference no worse than the dense route's (-0.005), both routes
@@ -104,12 +113,14 @@ the median phase stamps of a traced launch.
 ``csrc/attention.cu``. It builds that source alone, prints ptxas's
 registers and spills of each kernel, runs the forward's SASS and plan
 checks and phase 3's flash-forward check (both dtypes, every case);
-``--baseline=<path>`` adds, at each case in bf16, the forward of another
-``attention.cu`` (built beside it; the C interface is the same) timed
-against this source's in turns (old, new, new, old), its results held to
-this source's. ``--flash-fwd-probe`` times the bf16 forward's probe
-builds (``FLASH_FWD_BUILDS``: a phase left out, wrong results, times
-only) in turns at DANet's and OCNet's serving and train shapes.
+``--baseline=<path>`` adds, at each case in f32 and bf16, the forward of
+another ``attention.cu`` (built beside it; ``flash_attention_launch`` on
+f32 or bf16 q, k, v) timed against this source's (in f32 the route, split
+pass and kernel) in turns (old, new, new, old), its results held to this
+source's at the dtype's bar. ``--flash-fwd-probe`` times the forward
+kernels' probe builds (``FLASH_FWD_BUILDS``: a phase left out, wrong
+results, times only) in turns at DANet's and OCNet's serving and train
+shapes, in f32 (the kernel alone) and bf16.
 ``--flash-bwd`` neither: the rehearsal after an edit of
 ``csrc/attention_bwd.cu``. It builds that source alone, prints ptxas's
 registers and spills of each kernel, runs the SASS and tile checks above
@@ -498,13 +509,29 @@ def flash_bound(case, itemsize, dname):
 
 
 def flash_split_bound(case, dname):
-    """ms of the bf16 kernel's own work at its type's peak: s = q . k^T
-    is recomputed for each of the ``split`` blocks Dv is split over
-    (``fwd_plan``), 2 N P^2 (split Dk + Dv) FLOPs; stated beside the true
-    bound, never in its place."""
+    """(ms with the Dv split, ms without) of the kernel's own work at the
+    bf16 peak. bf16: 2 N P^2 (split Dk + Dv), s = q . k^T recomputed for
+    each of the ``split`` blocks Dv is split over (``fwd_plan``); f32: the
+    six products of pieces for s, 2 N P^2 6 split Dk at the bf16 peak, and
+    p . v on the FMA units, 2 N P^2 Dv at the f32 peak, which run at once:
+    the larger of the two (at Dk > 128 the f32 kernel does not split
+    Dv). Without the split (split = 1): bf16 the true bound, f32 the least
+    time of its arithmetic."""
     n, p, dk, dv = case["n"], case["p"], case["dk"], case["dv"]
-    split = 1 if dname == "float32" else max(1, dv // 256)
-    return 1e3 * 2 * n * p * p * (split * dk + dv) / PEAK_OPS[dname]
+    split = 1 if dname == "float32" and dk > 128 else max(1, dv // 256)
+    if dname == "float32":
+        pv = 1e3 * 2 * n * p * p * dv / PEAK_OPS["float32"]
+        return tuple(max(1e3 * 2 * n * p * p * 6 * sp * dk / PEAK_OPS["bfloat16"], pv)
+                     for sp in (split, 1))
+    return tuple(1e3 * 2 * n * p * p * (sp * dk + dv) / PEAK_OPS["bfloat16"]
+                 for sp in (split, 1))
+
+
+def flash_pieces_bound(case):
+    """(ms, 'bytes') of the f32 route's split pass: q and k read once in
+    f32, their three bf16 pieces each written once."""
+    n, p, dk = case["n"], case["p"], case["dk"]
+    return 1e3 * n * p * (2 * dk * 4 + 3 * 2 * dk * 2) / PEAK_BYTES, "bytes"
 
 
 def sdpa_library(torch, q, k, v, scale):
@@ -527,25 +554,32 @@ def sdpa_library(torch, q, k, v, scale):
 
 
 def check_flash_kernel(torch, attention, card, dev, gen):
-    """Every case in f32 and bf16: the wrapper (which launches the kernel)
-    against the plain version over key blocks of the bf16 kernel's tile
-    (``fwd_plan``), so that p rounds at the same running max; times of the
-    kernel, the plain version and ``scaled_dot_product_attention``."""
+    """Every case in f32 and bf16: the wrapper (which launches the kernel,
+    in f32 after the split pass) against the plain version over key blocks
+    of the kernel's tile (``fwd_plan``), so that bf16's p rounds at the same
+    running max; in f32 the split pass's pieces bitwise against
+    ``split_pieces_plain``; times of the kernel (in f32 the route, split pass
+    and kernel, and each alone), the plain version and
+    ``scaled_dot_product_attention``. Returns {case: {dtype: ...}}, the
+    split pass's numbers under f32's "pieces"."""
     results = {}
     for case in FLASH_CASES:
         n, p, dk, dv = case["n"], case["p"], case["dk"], case["dv"]
-        block_k = attention.fwd_plan(dk, dv)["tile"]
         for dt in (torch.float32, torch.bfloat16):
             dname = dtype_name(dt)
+            block_k = attention.fwd_plan(dk, dv, dt)["tile"]
             q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
             v = torch.randn(n, p, dv, generator=gen).to(dev, dt)
             scale = case["scale"]
             ref, ref_lse = attention.flash_attention_plain(q, k, v, scale, block_k=block_k)
             before = attention.flash_attention.launches
+            before_split = attention.flash_attention_split.launches
             got, lse = attention.flash_attention(q, k, v, scale)
             torch.cuda.synchronize()
-            if attention.flash_attention.launches != before + 1:
-                fail("flash_attention: the wrapper did not count its launch")
+            split_launches = 1 if dt == torch.float32 else 0
+            if (attention.flash_attention.launches != before + 1
+                    or attention.flash_attention_split.launches != before_split + split_launches):
+                fail("flash_attention: the wrapper did not count its launches")
             if (got.shape != ref.shape or lse.shape != (n, p)
                     or not (torch.isfinite(got.float()).all() and torch.isfinite(lse).all())):
                 fail(f"flash_attention {dname} {case['what']}: shapes {tuple(got.shape)}, "
@@ -557,36 +591,82 @@ def check_flash_kernel(torch, attention, card, dev, gen):
             lse_ref = ref_lse.abs().max().item()
             # Bars as for the other kernels. lse is f32 in both: the same
             # f32 sums in another order.
+            # f32 also at the margin the CPU emulation of the route's
+            # arithmetic holds against float64 (tests/test_torch_attention_
+            # fwd_f32split.py), so that a build that loses a piece or a
+            # product fails here and not only there.
             if dt == torch.float32:
-                ok = max_err <= 1e-4 * max_ref
-                rule = "max|err| <= 1e-4 max|ref|"
+                ok = (max_err <= 1e-4 * max_ref and max_err <= 2.5e-5 * max_ref
+                      and lse_err <= 1e-5 * lse_ref)
+                rule = "max|err| <= 1e-4 max|ref| and <= 2.5e-5 max|ref|, lse <= 1e-5 max|lse|"
             else:
                 ok = max_err <= 3e-2 * max_ref and mean_err <= 2e-3 * mean_ref
                 rule = "max|err| <= 3e-2 max|ref|, mean|err| <= 2e-3 mean|ref|"
             ok = ok and lse_err <= 1e-4 * lse_ref
             out, out_lse = torch.empty_like(got), torch.empty_like(lse)
-            kernel_ms = median_ms(torch, lambda: attention._launch(q, k, v, scale, out, out_lse))
+            # the type's peak: bf16 the bound; f32 the CUDA cores' FMA
+            peak_ms, bound_by, exp_ms = flash_bound(case, q.element_size(), dname)
+            split_bound, own_bound = flash_split_bound(case, dname)
+            bound_ms, split_ms, pieces = peak_ms, None, None
+            if dt == torch.float32:
+                bufs = attention._pieces(q)
+                want = (attention.split_pieces_plain(q, 3), attention.split_pieces_plain(k, 3))
+                attention._launch_split(q, k, bufs)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(bufs, want)):
+                    fail(f"flash_attention_split {case['what']}: pieces differ from "
+                         f"split_pieces_plain")
+                split_ms = median_ms(torch, lambda: attention._launch_split(q, k, bufs))
+                split_plain_ms = median_ms(torch, lambda: (
+                    attention.split_pieces_plain(q, 3), attention.split_pieces_plain(k, 3)),
+                    n=5, warmup=1)
+                kernel_only_ms = median_ms(
+                    torch, lambda: attention._launch(*bufs, v, scale, out, out_lse))
+
+                def route():
+                    attention._launch_split(q, k, bufs)
+                    attention._launch(*bufs, v, scale, out, out_lse)
+
+                kernel_ms = median_ms(torch, route)
+                bound_ms, bound_by = own_bound, "operations"
+                pieces_bound, pieces_by = flash_pieces_bound(case)
+                pieces = dict(max_abs_err=0.0, ms=split_ms, plain_ms=split_plain_ms,
+                              bound_ms=pieces_bound, bound_by=pieces_by, library_ms=None)
+                del bufs, want
+            else:
+                kernel_ms = kernel_only_ms = median_ms(
+                    torch, lambda: attention._launch(q, k, v, scale, out, out_lse))
             plain_ms = median_ms(torch, lambda: attention.flash_attention_plain(
                 q, k, v, scale, block_k=block_k), n=5, warmup=1)
             library_ms, backend = sdpa_library(torch, q, k, v, scale)
-            bound_ms, bound_by, exp_ms = flash_bound(case, q.element_size(), dname)
-            split_ms = flash_split_bound(case, dname)
             lib = "refused" if library_ms is None else f"{library_ms:.4f} ms"
+            if dt == torch.float32:
+                timing = (f"route {kernel_ms:.4f} ms (split pass {split_ms:.4f} ms, pieces "
+                          f"bitwise equal to split_pieces_plain, plain {split_plain_ms:.4f} ms, "
+                          f"bound {pieces['bound_ms']:.4f} ms (bytes); kernel "
+                          f"{kernel_only_ms:.4f} ms)")
+                bounds = (f"bound {bound_ms:.4f} ms (6 bf16 products for q.k^T at the bf16 peak "
+                          f"beside p.v on FMA; "
+                          f"with the Dv split's recomputed q.k^T {split_bound:.4f} ms; CUDA-core "
+                          f"FMA {peak_ms:.4f} ms; exponentials {exp_ms:.4f} ms)")
+            else:
+                timing = f"kernel {kernel_ms:.4f} ms"
+                bounds = (f"bound {bound_ms:.4f} ms ({bound_by}; exponentials {exp_ms:.4f} ms; "
+                          f"with the Dv split's recomputed q.k^T {split_bound:.4f} ms)")
             print(f"{card} flash_attention {dname} {case['what']} N={n} P={p} Dk={dk} Dv={dv} "
                   f"scale={scale:.6g}: max|err| {max_err:.6g} (max|ref| {max_ref:.6g}), "
                   f"mean|err| {mean_err:.6g} (mean|ref| {mean_ref:.6g}), lse max|err| "
                   f"{lse_err:.6g} (max|lse| {lse_ref:.6g}) [{rule}; lse <= 1e-4 max|lse|: "
-                  f"{'ok' if ok else 'FAIL'}]; kernel {kernel_ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib} ({backend}), bound "
-                  f"{bound_ms:.4f} ms ({bound_by}; exponentials {exp_ms:.4f} ms; with the Dv "
-                  f"split's recomputed q.k^T {split_ms:.4f} ms)")
+                  f"{'ok' if ok else 'FAIL'}]; {timing}, plain {plain_ms:.4f} ms, "
+                  f"scaled_dot_product_attention {lib} ({backend}), {bounds}")
             if not ok:
                 fail(f"flash_attention {dname} ({case['what']}) disagrees with its plain version")
             results.setdefault(case["what"], {})[dname] = dict(
-                max_abs_err=max_err, lse_max_abs_err=lse_err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, exp_bound_ms=exp_ms,
-                split_bound_ms=split_ms, library_ms=library_ms, library_backend=backend,
-                shape=[n, p, dk, dv],
+                max_abs_err=max_err, lse_max_abs_err=lse_err, ms=kernel_ms,
+                kernel_only_ms=kernel_only_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, fma_bound_ms=peak_ms if dt == torch.float32 else None,
+                exp_bound_ms=exp_ms, split_bound_ms=split_bound, library_ms=library_ms,
+                library_backend=backend, pieces=pieces, shape=[n, p, dk, dv],
                 main=bool(case.get("main")))
             del q, k, v, ref, ref_lse, got, lse, err, out, out_lse
         torch.cuda.empty_cache()
@@ -876,43 +956,92 @@ def flash_bwd_only(torch, attention, card):
     return 0
 
 
-def check_fwd_plans(attention, card):
-    """The bf16 forward's tiles, stages, Dv split and shared memory as the
-    source picks them (``flash_attention_plan``) against their mirror
-    ``ops/attention.py::fwd_plan``, at every (Dk, Dv) the kernel takes;
-    each case's plan printed."""
+def check_fwd_plans(torch, attention, card):
+    """The forward kernels' tiles, ring slots, Dv split and shared memory as
+    the source picks them (``flash_attention_plan``) against their mirror
+    ``ops/attention.py::fwd_plan``, in bf16 and f32 at every (Dk, Dv) the
+    kernels take; each case's plan printed."""
     import ctypes
 
-    keys = ("rows", "tile", "stages", "split", "smem")
+    keys = ("rows", "tile", "stages", "v_stages", "split", "smem")
     shown = {(c["dk"], c["dv"]) for c in FLASH_CASES}
-    for dk in range(16, 257, 16):
-        for dv in attention._DV:
-            out = (ctypes.c_int * 5)()
-            rc = attention._lib().flash_attention_plan(dk, dv, out)
-            src, mirror = dict(zip(keys, out)), attention.fwd_plan(dk, dv)
-            if (dk, dv) in shown or src != mirror:
-                print(f"{card} flash_attention bf16 plan Dk {dk} Dv {dv}: {src}"
-                      f"{'' if src == mirror else f' (mirror {mirror})'}")
-            if rc != 0 or src != mirror:
-                fail(f"fwd_plan({dk}, {dv}) differs from the source's")
-    print(f"{card} flash_attention bf16 plan: flash_attention_plan equals fwd_plan at all "
-          f"{16 * len(attention._DV)} (Dk, Dv)")
+    for dt in (torch.bfloat16, torch.float32):
+        dname = dtype_name(dt)
+        for dk in range(16, 257, 16):
+            for dv in attention._DV:
+                out = (ctypes.c_int * 6)()
+                rc = attention._lib().flash_attention_plan(dk, dv, int(dt == torch.bfloat16), out)
+                src, mirror = dict(zip(keys, out)), attention.fwd_plan(dk, dv, dt)
+                if (dk, dv) in shown or src != mirror:
+                    print(f"{card} flash_attention {dname} plan Dk {dk} Dv {dv}: {src}"
+                          f"{'' if src == mirror else f' (mirror {mirror})'}")
+                if rc != 0 or src != mirror:
+                    fail(f"fwd_plan({dk}, {dv}, {dname}) differs from the source's")
+    print(f"{card} flash_attention plans: flash_attention_plan equals fwd_plan at all "
+          f"{16 * len(attention._DV)} (Dk, Dv) in bf16 and in f32")
+
+
+def ptxas_spills(name, kernel_re):
+    """{function: (spill store bytes, spill load bytes)} of the kernels of
+    ``csrc/<name>.cu`` whose mangled name matches ``kernel_re``, from
+    ptxas's report of the build."""
+    import re
+
+    from segmentron_tpu_torch.ops.kernels import _target
+
+    spills, fn = {}, None
+    for ln in _target(name).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if "'" in ln else ln
+            fn = fn if re.search(kernel_re, fn) else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if fn and m:
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+    return spills
+
+
+# HGMMA of a specialisation that may be waited on alone (gsb0): the first
+# and the last tile's
+F32_FWD_MAX_WAITED = 8
 
 
 def check_fwd_sass(card):
-    """The bf16 forward kernel's SASS: each specialisation must hold HGMMA
-    (wgmma) and UTMALDG (TMA tile loads)."""
-    counts = print_sass_mix(card, "attention", r"flash_bf16_kernel", top=10)
+    """The forward kernels' SASS: each specialisation of the bf16 and the
+    f32 kernel must hold HGMMA (wgmma) and UTMALDG (TMA tile loads); the
+    f32 kernel (q . k^T on wgmma, p . v on FFMA) no function call, no
+    HGMMA waited on alone beyond ``F32_FWD_MAX_WAITED`` and no spill in
+    ptxas's report."""
+    counts = print_sass_mix(card, "attention", r"flash_(bf16|f32)_kernel", top=10)
     if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
-        fail("the bf16 flash-forward kernel lacks HGMMA or UTMALDG instructions")
+        fail("a flash-forward kernel lacks HGMMA or UTMALDG instructions")
+    f32 = {k: c for k, c in counts.items() if k.startswith("flash_f32")}
+    if len(f32) != 7:
+        fail(f"the f32 flash-forward kernels: {len(f32)} specialisations, want 7")
+    # a function call (an IEEE division's or expf's slow path) makes ptxas
+    # serialise every wgmma of the kernel
+    calls = {k: c["CALL"] for k, c in f32.items() if c["CALL"]}
+    if calls:
+        fail(f"the f32 flash-forward kernels call functions: {calls}")
+    # ptxas serialises every wgmma of a kernel it cannot pipeline: then each
+    # HGMMA sets gsb0; a pipelined kernel waits alone only at its ends
+    serial = {k: c["HGMMA waited alone"] for k, c in f32.items()
+              if c["HGMMA waited alone"] > F32_FWD_MAX_WAITED}
+    if serial:
+        fail(f"the f32 flash-forward kernels' HGMMA are waited on alone: {serial}")
+    spills = ptxas_spills("attention", r"flash_f32_kernel")
+    print(f"{card} ptxas attention flash_f32_kernel spills (stores, loads): "
+          f"{sorted(set(spills.values()))}; FFMA {[c['FFMA'] for c in f32.values()]}")
+    if len(spills) != 7 or any(st or ld for st, ld in spills.values()):
+        fail(f"the f32 flash-forward kernel spills: {spills}")
 
 
 def compare_flash_fwd(torch, attention, card, dev, gen, path):
-    """At each case in bf16, the forward of the baseline source ``path``
-    (another ``attention.cu``, same C interface) and of this one, each
-    median of 20, in turns old, new, new, old; the baseline's out and lse
-    held to this source's at the card's bf16 bar. Returns {case: {"old":
-    [ms, ms], "new": [ms, ms]}}."""
+    """At each case in f32 and bf16, the forward of the baseline source
+    ``path`` (another ``attention.cu``, its ``flash_attention_launch`` on
+    f32 or bf16 q, k, v) and this one's (in f32 the route: split pass, then
+    kernel), each median of 20, in turns old, new, new, old; the baseline's
+    out and lse held to this source's at the card's bar of the dtype.
+    Returns {case: {dtype: {"old": [ms, ms], "new": [ms, ms]}}}."""
     import ctypes
 
     old_lib = baseline_lib(path, "attention")
@@ -923,46 +1052,57 @@ def compare_flash_fwd(torch, attention, card, dev, gen, path):
     results = {}
     for case in FLASH_CASES:
         n, p, dk, dv, scale = case["n"], case["p"], case["dk"], case["dv"], case["scale"]
-        dt = torch.bfloat16
-        q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
-        v = torch.randn(n, p, dv, generator=gen).to(dev, dt)
-        got = {ver: (torch.empty_like(v), torch.empty((n, p), dtype=torch.float32, device=dev))
-               for ver in ("old", "new")}
+        for dt in (torch.float32, torch.bfloat16):
+            dname = dtype_name(dt)
+            q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
+            v = torch.randn(n, p, dv, generator=gen).to(dev, dt)
+            got = {ver: (torch.empty_like(v),
+                         torch.empty((n, p), dtype=torch.float32, device=dev))
+                   for ver in ("old", "new")}
+            bufs = (*attention._pieces(q), v) if dt == torch.float32 else (q, k, v)
 
-        def run(ver):
-            out, lse = got[ver]
-            if ver == "new":
-                return attention._launch(q, k, v, scale, out, lse)
-            rc = old_lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), n, p,
-                dk, dv, float(scale), 1, torch.cuda.current_stream().cuda_stream)
-            attention._raise_rc("baseline flash_attention_launch", rc)
+            def run(ver):
+                out, lse = got[ver]
+                if ver == "new":
+                    if dt == torch.float32:
+                        attention._launch_split(q, k, bufs[:2])
+                    return attention._launch(*bufs, scale, out, lse)
+                rc = old_lib.flash_attention_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    n, p, dk, dv, float(scale), int(dt == torch.bfloat16),
+                    torch.cuda.current_stream().cuda_stream)
+                attention._raise_rc("baseline flash_attention_launch", rc)
 
-        times = {"old": [], "new": []}
-        for ver in ("old", "new", "new", "old"):
-            times[ver].append(median_ms(torch, lambda: run(ver)))
-        torch.cuda.synchronize()
-        (a, la), (b, lb) = got["old"], got["new"]
-        err = (a.float() - b.float()).abs()
-        ok = (err.max().item() <= 3e-2 * b.float().abs().max().item()
-              and err.mean().item() <= 2e-3 * b.float().abs().mean().item()
-              and (la - lb).abs().max().item() <= 1e-4 * lb.abs().max().item())
-        if not ok:
-            fail(f"baseline flash_attention bf16 {case['what']}: out or lse differ beyond the bar")
-        old_ms, new_ms = statistics.mean(times["old"]), statistics.mean(times["new"])
-        print(f"{card} flash_attention bf16 {case['what']} N={n} P={p} Dk={dk} Dv={dv}: baseline "
-              f"{path} against this source, old/new/new/old: old "
-              f"{' '.join(f'{x:.4f}' for x in times['old'])} ms, new "
-              f"{' '.join(f'{x:.4f}' for x in times['new'])} ms; old / new {old_ms / new_ms:.2f}")
-        results[case["what"]] = times
-        del q, k, v, got, a, b, la, lb, err
+            times = {"old": [], "new": []}
+            for ver in ("old", "new", "new", "old"):
+                times[ver].append(median_ms(torch, lambda: run(ver)))
+            torch.cuda.synchronize()
+            (a, la), (b, lb) = got["old"], got["new"]
+            err = (a.float() - b.float()).abs()
+            if dt == torch.float32:
+                ok = err.max().item() <= 1e-4 * b.abs().max().item()
+            else:
+                ok = (err.max().item() <= 3e-2 * b.float().abs().max().item()
+                      and err.mean().item() <= 2e-3 * b.float().abs().mean().item())
+            ok = ok and (la - lb).abs().max().item() <= 1e-4 * lb.abs().max().item()
+            if not ok:
+                fail(f"baseline flash_attention {dname} {case['what']}: out or lse differ "
+                     f"beyond the bar")
+            old_ms, new_ms = statistics.mean(times["old"]), statistics.mean(times["new"])
+            print(f"{card} flash_attention {dname} {case['what']} N={n} P={p} Dk={dk} Dv={dv}: "
+                  f"baseline {path} against this source, old/new/new/old: old "
+                  f"{' '.join(f'{x:.4f}' for x in times['old'])} ms, new "
+                  f"{' '.join(f'{x:.4f}' for x in times['new'])} ms; old / new "
+                  f"{old_ms / new_ms:.2f}")
+            results.setdefault(case["what"], {})[dname] = times
+            del q, k, v, got, a, b, la, lb, err, bufs
         torch.cuda.empty_cache()
     return results
 
 
 def flash_fwd_only(torch, attention, card):
     """``--flash-fwd``: build ``csrc/attention.cu`` alone, print its ptxas
-    report, check the bf16 kernel's SASS and plans, check the forward at
+    report, check the forward kernels' SASS and plans, check the forward at
     every case in both dtypes, optionally against a baseline source."""
     from segmentron_tpu_torch.ops.kernels import build
 
@@ -971,7 +1111,7 @@ def flash_fwd_only(torch, attention, card):
     print(f"{card} build attention: {time.perf_counter() - t0:.2f} s")
     print_ptxas(card, "attention")
     check_fwd_sass(card)
-    check_fwd_plans(attention, card)
+    check_fwd_plans(torch, attention, card)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
     results = {"flash_attention": check_flash_kernel(torch, attention, card, dev, gen)}
@@ -994,10 +1134,11 @@ FLASH_FWD_BUILDS = {
 
 
 def flash_fwd_probe(torch, attention, card):
-    """``--flash-fwd-probe``: the bf16 forward and its probe builds
+    """``--flash-fwd-probe``: the forward kernels and their probe builds
     (``FLASH_FWD_BUILDS``, built in parallel) at DANet's and OCNet's
-    serving and train shapes, timed in turns (each build, then each again
-    in reverse order; median of 20 each); the SASS opcode counts."""
+    serving and train shapes in f32 (the kernel alone, on pieces from the
+    split pass) and bf16, timed in turns (each build, then each again in
+    reverse order; median of 20 each); the SASS opcode counts."""
     import ctypes
 
     from segmentron_tpu_torch.ops import kernels
@@ -1024,23 +1165,31 @@ def flash_fwd_probe(torch, attention, card):
     for name, path in libs.items():
         kernels._loaded["attention"] = ctypes.CDLL(str(path))
         loaded[name] = attention._lib()
-    print_sass_mix(card, "attention", r"flash_bf16_kernel")
+    print_sass_mix(card, "attention", r"flash_(bf16|f32)_kernel")
     dev, gen, results = torch.device("cuda"), torch.Generator().manual_seed(0), {}
     for case in FLASH_CASES[:2] + FLASH_CASES[4:6]:
         n, p, dk, dv, scale = case["n"], case["p"], case["dk"], case["dv"], case["scale"]
-        q, k = (torch.randn(n, p, dk, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
-        v = torch.randn(n, p, dv, generator=gen).to(dev, torch.bfloat16)
-        out, lse = torch.empty_like(v), torch.empty((n, p), dtype=torch.float32, device=dev)
-        times = {}
-        for name in [*loaded, *reversed(loaded)]:
-            kernels._loaded["attention"] = loaded[name]
-            times.setdefault(name, []).append(median_ms(
-                torch, lambda: attention._launch(q, k, v, scale, out, lse)))
-        torch.cuda.synchronize()
-        print(f"{card} flash_attention bf16 {case['what']} probe builds, ms (in turns): "
-              + "; ".join(f"{b} {' '.join(f'{x:.4f}' for x in t)}" for b, t in times.items()))
-        results[case["what"]] = times
-        del q, k, v, out, lse
+        for dt in (torch.float32, torch.bfloat16):
+            dname = dtype_name(dt)
+            q, k = (torch.randn(n, p, dk, generator=gen).to(dev, dt) for _ in range(2))
+            v = torch.randn(n, p, dv, generator=gen).to(dev, dt)
+            out, lse = torch.empty_like(v), torch.empty((n, p), dtype=torch.float32, device=dev)
+            if dt == torch.float32:
+                kernels._loaded["attention"] = loaded["full"]
+                bufs = (*attention._pieces(q), v)
+                attention._launch_split(q, k, bufs[:2])
+            else:
+                bufs = (q, k, v)
+            times = {}
+            for name in [*loaded, *reversed(loaded)]:
+                kernels._loaded["attention"] = loaded[name]
+                times.setdefault(name, []).append(median_ms(
+                    torch, lambda: attention._launch(*bufs, scale, out, lse)))
+            torch.cuda.synchronize()
+            print(f"{card} flash_attention {dname} {case['what']} probe builds, ms (in turns): "
+                  + "; ".join(f"{b} {' '.join(f'{x:.4f}' for x in t)}" for b, t in times.items()))
+            results.setdefault(case["what"], {})[dname] = times
+            del q, k, v, out, lse, bufs
         torch.cuda.empty_cache()
     kernels._loaded["attention"] = loaded["full"]
     print(json.dumps(results))
@@ -1116,6 +1265,7 @@ def print_sass_mix(card, name, kernels_re, top=14):
         print(f"{card} sass {name} {label}: {sum(ops.values())} instructions: "
               + ", ".join(f"{op} {c}" for op, c in ops.most_common(top))
               + f"; HGMMA {ops['HGMMA']} ({waited} with gsb0), UTMALDG {ops['UTMALDG']}")
+        ops["HGMMA waited alone"] = waited
     return counts
 
 
@@ -1266,8 +1416,9 @@ def gated_launches(torch, model, image, predict):
                 fused_sepconv_infer_v3_skip=0,
                 fused_stem_block1=int(model.backbone._fused_stem_mode(
                     torch.empty((1, 3) + tuple(image.shape[1:3]), device="meta")) == "block1"),
-                fused_stem=0, flash_attention=0, flash_attention_bwd_dq=0,
-                flash_attention_bwd_dkv=0, probe_dot=0)  # no model runs probe_dot
+                fused_stem=0, flash_attention=0, flash_attention_split=0,
+                # no model runs probe_dot
+                flash_attention_bwd_dq=0, flash_attention_bwd_dkv=0, probe_dot=0)
     in_chain = set()
     for m in shapes:
         if isinstance(m, XceptionBlock) and m._fused_chain(meta(m)):
@@ -1307,13 +1458,16 @@ def set_attention(model, use_pallas):
             m.use_pallas = use_pallas
 
 
-def attention_models(torch, card, dev, defaults, counts, profile_forward):
+def attention_models(torch, card, dev, defaults, counts, profile_forward, profile_call):
     """Phase 6: DANet and OCNet over ResNet-101 at output stride 8 from
     their serving configs, full width, random weights from the seed, BN
     statistics drawn as for the flagship and ``gamma = GAMMA``.
 
     In f32 (TF32 off) the kernel route's argmax is held to the dense
-    route's (>= 0.995), for DANet, OCNet base and OCNet pyramid; then,
+    route's (>= 0.995), for DANet, OCNet base and OCNet pyramid (one launch
+    of the split pass and of the kernel a flash attention); for DANet and
+    OCNet base the f32 kernel-route forward is timed (median of 3) and
+    profiled once, for the flash forward's share of it; then,
     with the launch counters set to 0 just before and read just after,
     each of DANet and OCNet base runs through the ``Evaluator`` in bf16
     over synthetic 1024x2048 images (one kernel launch a forward); the
@@ -1323,7 +1477,8 @@ def attention_models(torch, card, dev, defaults, counts, profile_forward):
     bf16 forward (three launches: levels 1, 2 and 3; level 6 is dense).
 
     ``defaults``: the cfg's default tree; ``counts``: (zero the launch
-    counters, read them)."""
+    counters, read them); ``profile_forward``, ``profile_call``: profilers
+    of a forward and of a call."""
     from segmentron_tpu_torch.config import cfg
     from segmentron_tpu_torch.data.dataloader import SyntheticSegmentation
     from segmentron_tpu_torch.engine import Evaluator, make_predict_fn
@@ -1367,18 +1522,40 @@ def attention_models(torch, card, dev, defaults, counts, profile_forward):
             set_attention(model, True)
             zero_counts()
             kernel32 = predict32(image).argmax(-1)
-            launches32 = read_counts()["flash_attention"]
+            counts32 = read_counts()
+        launches32 = counts32["flash_attention"]
+        split32 = counts32["flash_attention_split"]
         agree32 = agreement(kernel32, ref)
         print(f"{card} {label} / resnet101, output stride 8, {model.nclass} classes, "
               f"{sum(p.numel() for p in model.parameters())} parameters, gamma {GAMMA} "
-              f"({n_gamma}); f32 {SHAPE}: kernel route launches {launches32}, argmax agreement "
-              f"with the dense route {agree32:.6f} [>= 0.995]")
-        if launches32 != per_forward[label]:
-            fail(f"{label}: {launches32} flash launches in an f32 forward, want "
-                 f"{per_forward[label]}")
+              f"({n_gamma}); f32 {SHAPE}: kernel route launches {launches32} (split pass "
+              f"{split32}), argmax agreement with the dense route {agree32:.6f} [>= 0.995]")
+        if launches32 != per_forward[label] or split32 != per_forward[label]:
+            fail(f"{label}: {launches32} flash launches and {split32} of the split pass in an "
+                 f"f32 forward, want {per_forward[label]} each")
         if agree32 < 0.995:
             fail(f"{label}: the kernel route's f32 argmax agrees with the dense route's on "
                  f"less than 0.995 of the pixels")
+        f32_share = None
+        if label != "OCNet pyramid":
+            def forward32():
+                with torch.inference_mode():
+                    return predict32(image)
+
+            fwd32_ms = median_ms(torch, forward32, n=3, warmup=1)
+            prof32 = profile_call(forward32,
+                                  f"one f32 forward, {label} kernel route, 1x{SHAPE[1]}x{SHAPE[2]}",
+                                  f"chip_smoke_profile_{name.lower()}_f32.txt",
+                                  match=r"flash_f32_kernel|split_planes_kernel")
+            f32_share = dict(forward_ms=fwd32_ms, flash_ms=prof32["matched_ms"],
+                             kernels_ms=prof32["kernels_ms"],
+                             share_of_kernels=prof32["matched_ms"] / prof32["kernels_ms"],
+                             share_of_forward=prof32["matched_ms"] / fwd32_ms)
+            print(f"{card} {label} f32 forward, kernel route: {fwd32_ms:.3f} ms (median of 3); "
+                  f"the flash forward (split pass and kernel) {prof32['matched_ms']:.3f} ms of "
+                  f"{prof32['kernels_ms']:.3f} ms of kernels in one profiled forward, "
+                  f"{f32_share['share_of_kernels']:.4f} of the kernel time, "
+                  f"{f32_share['share_of_forward']:.4f} of the forward")
         torch.backends.cudnn.allow_tf32 = True  # the model's own default from here on
         if label == "OCNet pyramid":
             predict = make_predict_fn(model, cfg.TPU.COMPUTE_DTYPE, dev)
@@ -1445,7 +1622,7 @@ def attention_models(torch, card, dev, defaults, counts, profile_forward):
             launches=launches["flash_attention"], forward_ms=ms[True],
             img_per_s=1e3 / ms[True], dense_forward_ms=ms[False],
             rounds={"kernel": fwd[True], "dense": fwd[False]},
-            argmax_agreement_f32=agree32,
+            argmax_agreement_f32=agree32, f32_launches=counts32, f32_forward=f32_share,
             argmax_agreement_bf16_vs_f32={"kernel": agree16[True], "dense": agree16[False]},
             profile=profile)
         del evaluator, predict, model
@@ -1643,8 +1820,9 @@ def train_models(torch, card, dev, defaults, counts, profile_call):
                  f"dense route's: {dict(list(over_g.items())[:5])}")
         if len(qkv_norms) != 3 or min(qkv_norms.values()) <= 0:
             fail(f"train {label}: the attention's query/key/value convs got no gradient")
-        if (launches32["flash_attention"], launches32["flash_attention_bwd_dq"],
-                launches32["flash_attention_bwd_dkv"]) != (1, 1, 1):
+        if (launches32["flash_attention"], launches32["flash_attention_split"],
+                launches32["flash_attention_bwd_dq"],
+                launches32["flash_attention_bwd_dkv"]) != (1, 1, 1, 1):
             fail(f"train {label}: f32 step launches {launches32}")
         torch.backends.cudnn.allow_tf32 = True  # the model's own default from here on
 
@@ -1818,7 +1996,7 @@ def print_ptxas(card, name):
             if m:
                 arg = m.group(2) and ("<int8>" if m.group(2) == "1" else "<bf16>")
                 fn = m.group(1) + (arg or "")
-            elif mb and mb.group(1) == "flash_bf16_kernel":  # <padded Dk, Dv of a block>
+            elif mb and mb.group(1).startswith("flash_"):  # <padded Dk, Dv of a block>
                 fn = f"{mb.group(1)}<Dk padded to {mb.group(2)}, {mb.group(3)} Dv columns a block>"
             elif mb and "bf16" in mb.group(1):  # <padded Dk, Dv>
                 fn = f"{mb.group(1)}<Dk padded to {mb.group(2)}, Dv {mb.group(3)}>"
@@ -2126,6 +2304,7 @@ def main():
         "fused_stem": entrychain.fused_stem,
         **{name: getattr(sepconv, name) for name in SEPCONV_REPLACES},
         "flash_attention": attention.flash_attention,
+        "flash_attention_split": attention.flash_attention_split,
         "flash_attention_bwd_dq": attention.flash_attention_bwd_dq,
         "flash_attention_bwd_dkv": attention.flash_attention_bwd_dkv,
         "probe_dot": probe_dot.probe_dot,
@@ -2143,7 +2322,7 @@ def main():
     check_bwd_plans(attention, card)
     print_ptxas(card, "attention")
     check_fwd_sass(card)
-    check_fwd_plans(attention, card)
+    check_fwd_plans(torch, attention, card)
     flash_bwd_results = check_flash_bwd_kernels(torch, attention, card, dev, gen)
     flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)
@@ -2419,9 +2598,13 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_call(thunk, label, path):
+    def profile_call(thunk, label, path, match=None):
         """Kernel time by name and the device's idle share of one call of
-        ``thunk`` under ``torch.profiler`` (table written to ``path``)."""
+        ``thunk`` under ``torch.profiler`` (table written to ``path``);
+        with ``match``, also the device time of the kernels whose name
+        matches that regular expression."""
+        import re
+
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2442,7 +2625,9 @@ def main():
               f"launches; top kernels by device time:")
         for e in device_kernels[:12]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
-        return dict(kernels_ms=device_us / 1e3, window_ms=window_us / 1e3,
+        matched = {} if match is None else dict(matched_ms=sum(
+            e.self_device_time_total for e in device_kernels if re.search(match, e.key)) / 1e3)
+        return dict(kernels_ms=device_us / 1e3, window_ms=window_us / 1e3, **matched,
                     idle_share=1 - device_us / window_us,
                     launches=sum(e.count for e in device_kernels),
                     top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
@@ -2462,7 +2647,7 @@ def main():
 
     # ----------------------------------------------------- 6. DANet, OCNet
     attn_models = attention_models(torch, card, dev, defaults, (zero_counts, read_counts),
-                                   profile_forward)
+                                   profile_forward, profile_call)
 
     # ------------------------------------------------- 7. DANet, OCNet train
     train = train_models(torch, card, dev, defaults, (zero_counts, read_counts), profile_call)
@@ -2479,6 +2664,9 @@ def main():
         "fused_sepconv_infer": direct_launches,
         # the DANet and OCNet-base runs of the Evaluator
         "flash_attention": attn_models["DANet"]["launches"] + attn_models["OCNet"]["launches"],
+        # the DANet and OCNet-base f32 forwards of the kernel route (the f32 route only)
+        "flash_attention_split": sum(attn_models[m]["f32_launches"]["flash_attention_split"]
+                                     for m in ("DANet", "OCNet")),
         # one bf16 train step each of DANet and OCNet base
         **{name: sum(t["launches"][name] for t in train.values())
            for name in ATTENTION_BWD_REPLACES},
@@ -2494,6 +2682,9 @@ def main():
                      for name in SEPCONV_REPLACES})
     flash_main = next(r["bfloat16"] for r in flash_results.values() if r["bfloat16"]["main"])
     measured["flash_attention"] = (ATTENTION_SOURCE, ATTENTION_REPLACES, flash_main)
+    pieces_main = next(r["float32"]["pieces"] for r in flash_results.values()
+                       if r["float32"]["main"])
+    measured["flash_attention_split"] = (ATTENTION_SOURCE, ATTENTION_REPLACES, pieces_main)
     bwd_main = next(r["bfloat16"] for r in flash_bwd_results.values() if r["bfloat16"]["main"])
     for name, replaces in ATTENTION_BWD_REPLACES.items():
         measured[name] = (ATTENTION_BWD_SOURCE, replaces, bwd_main[name.rsplit("_", 1)[1]])

@@ -116,6 +116,18 @@ template <int M, int N> __device__ __forceinline__ void fence_regs(uint32_t (&d)
 
 template <int N> struct Wgmma;
 template <> struct Wgmma<32> {
+  // d = a . b, d written only (see Wgmma<64>::ss0).
+  __device__ static void ss0(float (&d)[16], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+          "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+          "=f"(d[14]), "=f"(d[15])
+        : "l"(da), "l"(db), "r"(0));
+  }
   template <int TB>
   __device__ static void ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
     asm volatile(
@@ -360,6 +372,22 @@ bool encode_rows(CUtensorMap* map, const void* ptr, int n, int p, int width, int
   cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map of a contiguous (n, p, width) f32 array: boxes of `cols`
+// columns x `rows` rows of one image, unswizzled (row-major in shared
+// memory), zeros past every edge.
+bool encode_rows_f32(CUtensorMap* map, const void* ptr, int n, int p, int width, int cols,
+                     int rows) {
+  auto fn = encode_fn();
+  if (!fn) return false;
+  cuuint64_t dims[3] = {cuuint64_t(width), cuuint64_t(p), cuuint64_t(n)};
+  cuuint64_t strides[2] = {cuuint64_t(width) * 4, cuuint64_t(width) * 4 * cuuint64_t(p)};
+  cuuint32_t box[3] = {cuuint32_t(cols), cuuint32_t(rows), 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

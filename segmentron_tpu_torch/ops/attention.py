@@ -10,11 +10,13 @@ q_i . k_j) v_j``. The layout is the JAX package's, ``(N, P, C)``.
   ``_flash_kernel`` (``_attention_pallas``). It never holds the affinity
   and returns ``(out, lse)``, the log-sum-exp of each query row in f32 (the
   backward needs it). For a CUDA tensor it launches the kernel or
-  raises; for a CPU tensor it computes ``flash_attention_plain``, the same
-  function in plain PyTorch with the kernel's roundings (``p`` cast to
-  ``v.dtype`` before the product; with ``block_k`` =
-  ``fwd_plan(...)["tile"]`` it rounds ``p`` at the bf16 kernel's running
-  max). ``flash_attention.launches`` counts kernel launches.
+  raises (in f32 after ``flash_attention_split``, the split pass that
+  writes q's and k's bf16 pieces); for a CPU tensor it computes
+  ``flash_attention_plain``, the same function in plain PyTorch with the
+  kernel's roundings (``p`` cast to ``v.dtype`` before the product; with
+  ``block_k`` = ``fwd_plan(...)["tile"]`` it rounds ``p`` at the bf16
+  kernel's running max). ``flash_attention.launches`` and
+  ``flash_attention_split.launches`` count kernel launches.
 - ``flash_attention_bwd``: the backward, two hand-written CUDA kernels
   (``csrc/attention_bwd.cu``) that replace the Pallas kernels
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``
@@ -33,8 +35,12 @@ On an H100 the kernels are bound by operations: at DANet's shape (P 32768,
 Dk 64, Dv 512) the forward does 1.237 TFLOP, 1.25 ms at the bf16
 tensor-core peak; the sources describe their designs and bounds. In bf16
 the forward runs on ``wgmma`` over TMA rings of k and v, Dv 512 split
-over the grid in two halves of 256 columns; ``fwd_plan`` mirrors its
-tiles, stages and shared memory. In bf16 the backward runs on ``wgmma``
+over the grid in two halves of 256 columns. In f32 it runs ``q k^T`` on
+the same skeleton as six ``wgmma`` products of bf16 pieces of q and k
+(``split_pieces_plain``: hi + mid + lo), summed in f32, and ``p v`` on the
+CUDA cores, one f32 FMA a term, key by key, as the plain version and the
+dense route sum it. ``fwd_plan`` mirrors either kernel's tiles, stages
+and shared memory. In bf16 the backward runs on ``wgmma``
 over a ring of TMA stages, p and ds fed as hi + lo bf16 pairs;
 ``bwd_plan`` mirrors the tiles, stages and shared memory its kernels
 pick. In f32 the backward's five products run on the
@@ -60,6 +66,8 @@ __all__ = [
     "flash_attention_bwd_dq",
     "flash_attention_bwd_plain",
     "flash_attention_plain",
+    "flash_attention_split",
+    "split_pieces_plain",
     "bwd_plan",
     "fwd_plan",
     "spatial_attention",
@@ -98,6 +106,18 @@ def flash_attention_plain(q, k, v, scale: float, block_k: int = 4096):
     return out, lse
 
 
+def split_pieces_plain(x, pieces: int):
+    """The f32 route's pieces of ``x``, a ``(pieces, *x.shape)`` bf16
+    tensor: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+    each rounded to nearest even, the differences exact in f32."""
+    out, rest = [], x.float()
+    for _ in range(pieces):
+        piece = rest.to(torch.bfloat16)
+        out.append(piece)
+        rest = rest - piece.float()
+    return torch.stack(out)
+
+
 def flash_attention_bwd_plain(q, k, v, do, o, lse, scale: float, block_q: int = 512,
                               block_k: int = 512):
     """Plain PyTorch version of ``flash_attention_bwd``, the JAX
@@ -130,7 +150,9 @@ def _lib():
     lib.flash_attention_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, i,
                                            ctypes.c_float, i, ptr]
     lib.flash_attention_launch.restype = i
-    lib.flash_attention_plan.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.flash_attention_split_launch.argtypes = [ptr] * 4 + [i, i, i, ptr]
+    lib.flash_attention_split_launch.restype = i
+    lib.flash_attention_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.flash_attention_plan.restype = i
     return lib
 
@@ -184,26 +206,54 @@ def bwd_plan(which: str, dk: int, dv: int) -> dict:
     return dict(rows=rows, tile=tile, stages=stages, smem=size(stages))
 
 
-def fwd_plan(dk: int, dv: int) -> dict:
-    """The bf16 forward kernel's tiles for (Dk, Dv), as
-    ``csrc/attention.cu`` picks them (``FwdPlan``, ``flash_attention_plan``):
-    ``rows`` of queries a block keeps (two warpgroups of 64), ``tile`` keys
-    a ring slot streams, ``stages`` slots in each of the k and v rings,
-    ``split`` the blocks Dv is split over (Dv 512: two halves of 256) and
-    the dynamic shared memory ``smem`` in bytes: 1 KB of slack to align the
-    swizzled tiles, q, the rings of k and of the block's v columns (bf16,
-    Dk padded to 64, 128 or 256) and 8 bytes an mbarrier (a full and an
-    empty one a slot of each ring, one for q); up to 4 slots that fit."""
+def fwd_plan(dk: int, dv: int, dtype=torch.bfloat16) -> dict:
+    """The forward kernel's tiles for (Dk, Dv) in ``dtype`` (bfloat16 or
+    float32), as ``csrc/attention.cu`` picks them (``FwdPlan``,
+    ``F32Plan``, ``flash_attention_plan``): ``rows`` of queries a block
+    keeps (warpgroups of 64), ``tile`` keys a ring slot streams,
+    ``stages`` and ``v_stages`` slots of the k and the v ring, ``split``
+    the blocks Dv is split over (Dv 512: two halves of 256) and the dynamic
+    shared memory ``smem`` in bytes: 1 KB of slack to align the swizzled
+    tiles, q, the rings of k and of the block's v columns (bf16, Dk padded
+    to 64, 128 or 256) and 8 bytes an mbarrier (a full and an empty one a
+    slot of each ring, one for q). bf16: 128 rows, 64-key tiles, equal
+    rings of up to 4 slots that fit. float32: q and k as three bf16
+    pieces, v in f32 (4 bytes an element); 128 rows (64 at Dk 256, where
+    q's pieces would fill the block's memory, and then all of Dv a block),
+    32-key tiles, a k ring of 2 slots (1 where 2 would leave room for
+    fewer than 2 of v), a v ring of 16-key slots, the most up to 8 that
+    fit, and two p tiles (p of a tile and alpha, f32). Both
+    otherwise: 256 of v's columns a block (all of them at Dv 128)."""
     if dk % 16 or not 16 <= dk <= 256 or dv not in _DV:
         raise ValueError(f"fwd_plan: no plan for Dk {dk}, Dv {dv}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fwd_plan: no plan for {dtype}")
     dkp = 64 if dk <= 64 else 128 if dk <= 128 else 256
-    rows, tile, dvb = 128, 64, min(dv, 256)
+    dvb = min(dv, 256)
+    if dtype == torch.bfloat16:
+        rows, tile = 128, 64
 
-    def size(stages):
-        return 1024 + 2 * rows * dkp + stages * 2 * tile * (dkp + dvb) + (4 * stages + 1) * 8
+        def size(ks, vs):
+            return (1024 + 2 * dkp * (rows + ks * tile) + vs * 2 * tile * dvb
+                    + (2 * ks + 2 * vs + 1) * 8)
 
-    stages = next(st for st in (4, 3, 2) if size(st) <= _SMEM_MAX or st == 2)
-    return dict(rows=rows, tile=tile, stages=stages, split=dv // dvb, smem=size(stages))
+        stages = next(st for st in (4, 3, 2) if size(st, st) <= _SMEM_MAX or st == 2)
+        v_stages = stages
+    else:
+        rows, tile = (64 if dkp == 256 else 128), 32
+        dvb = dv if dkp == 256 else dvb
+
+        def size(ks, vs):  # v slots of 16 keys; two p tiles (32 x 68, then 64, f32)
+            return (1024 + 6 * dkp * (rows + ks * tile) + vs * 16 * dvb * 4
+                    + 2 * (tile * 68 + 64) * 4 + (2 * ks + 2 * vs + 1) * 8)
+
+        def v_fit(ks):
+            return next(vs for vs in range(8, 0, -1) if size(ks, vs) <= _SMEM_MAX or vs == 1)
+
+        stages = 2 if v_fit(2) >= 2 else 1
+        v_stages = v_fit(stages)
+    return dict(rows=rows, tile=tile, stages=stages, v_stages=v_stages, split=dv // dvb,
+                smem=size(stages, v_stages))
 
 
 def _check(q, k, v, *more):
@@ -238,15 +288,52 @@ def _raise_rc(name, rc):
 
 def _launch(q, k, v, scale, out, lse):
     """One launch of the kernel into ``out`` and ``lse`` (no checks, no
-    count)."""
+    count); in f32, q and k are the pieces ``_launch_split`` wrote."""
+    n, p = lse.shape
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            n, p, q.shape[-1], out.shape[-1], float(scale), int(out.dtype == torch.bfloat16),
+            stream,
+        )
+    _raise_rc("flash_attention_launch", rc)
+
+
+def _pieces(q):
+    """Two empty (3, N, P, Dk) bf16 tensors for the pieces of q and k."""
+    return tuple(torch.empty((3, *q.shape), dtype=torch.bfloat16, device=q.device)
+                 for _ in range(2))
+
+
+def _launch_split(q, k, pieces):
+    """One launch of the split pass into ``pieces`` (no checks, no count)."""
     n, p, dk = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            n, p, dk, v.shape[-1], float(scale), int(q.dtype == torch.bfloat16), stream,
+        rc = _lib().flash_attention_split_launch(
+            q.data_ptr(), k.data_ptr(), *(t.data_ptr() for t in pieces), n, p, dk, stream,
         )
-    _raise_rc("flash_attention_launch", rc)
+    _raise_rc("flash_attention_split_launch", rc)
+
+
+def flash_attention_split(q, k, v):
+    """The f32 route's split pass: f32 CUDA tensors q, k (N, P, Dk) ->
+    their bf16 pieces (``split_pieces_plain(x, 3)``, two (3, N, P, Dk)
+    tensors), one kernel launch for both; raises for what
+    ``flash_attention`` does not take (v, (N, P, Dv), for the check).
+    ``flash_attention`` calls it on CUDA tensors only (on the CPU it
+    computes ``flash_attention_plain``)."""
+    _check(q, k, v)
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_split: takes float32, got {q.dtype}")
+    pieces = _pieces(q)
+    _launch_split(q, k, pieces)
+    flash_attention_split.launches += 1
+    return pieces
+
+
+flash_attention_split.launches = 0
 
 
 def _launch_bwd(which, q, k, v, do, lse, delta, scale, *outs):
@@ -273,6 +360,8 @@ def flash_attention(q, k, v, scale: float):
     n, p, _ = q.shape
     out = torch.empty((n, p, v.shape[-1]), dtype=v.dtype, device=v.device)
     lse = torch.empty((n, p), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        q, k = flash_attention_split(q, k, v)
     _launch(q, k, v, scale, out, lse)
     flash_attention.launches += 1
     return out, lse
