@@ -4,6 +4,7 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--kernels-only | --probe | --probe-dot
+                           | --sepconv [--baseline=<path>] | --sepconv-probe
                            | --flash-fwd [--baseline=<path>] | --flash-fwd-probe
                            | --flash-bwd [--baseline=<path>]
                            | --flash-bwd-probe[=f32|bf16]]
@@ -23,7 +24,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    end (output stride 8, ``int8_dot``), the stride-2 conv-skip end of
    block2 at 256x512, block3's conv-skip end, a 128-channel layer, the
    output-stride-16 middle layer, a decoder layer and a 1536-channel
-   exit-flow layer (bf16 / f32 products); the flash-attention forward
+   exit-flow layer (bf16 / f32 products), each time also with the launch
+   hidden behind a spin of the card (``ms_launch_hidden``) and the host's
+   microseconds a call (``host_us``); before it, ``csrc/sepconv.cu``'s
+   ptxas report and SASS (``check_sepconv_build``) and its plans against
+   ``ops/sepconv.py::sepconv_plan`` (``check_sepconv_plans``), and after
+   it both main cases (v3, v2) must have taken ``sepconv_wgmma_kernel``;
+   the flash-attention forward
    (``ops/attention.py``) at DANet's and OCNet's shapes (P = 32768, and
    the pyramid's N=4/P=8192 and N=9/P=3698), their train shapes (N=16,
    P=5184) and two small ragged cases, out and lse against the plain
@@ -105,7 +112,29 @@ its last line ``{"ok": true, "device": {...}}``.
 
 ``--probe`` does none of this: it builds ``csrc/sepconv.cu`` with its
 clock64 probe and prints, for each main sepconv case in bf16, the share
-of a block's cycles that the taps, the products and the epilogue take.
+of the cycles that the taps, the products (for the wgmma kernel: the
+waits on them and on the weights) and the epilogue take, for the kernel
+the case takes (the wgmma kernel, or the resident kernel at the block
+end).
+``--sepconv`` neither: the rehearsal after an edit of
+``csrc/sepconv.cu``. It builds that source alone, prints ptxas's
+registers and spills of each kernel and the wgmma kernel's SASS counts,
+fails on a spill of the wgmma kernel, on a ptxas wgmma-serialisation
+warning (C7510-C7520) and where a specialisation lacks HGMMA/IGMMA or
+UTMALDG; holds ``sepconv_plan`` (the source's) to
+``ops/sepconv.py::sepconv_plan`` at every ``SEPCONV_CASES`` case in both
+dtypes and at the flagship's fused layers (``FLAGSHIP_SEPCONV_LAYERS``),
+with every bf16 stride-1 main case on the wgmma kernel and the skip,
+stride-2 and f32 cases on the older kernels; runs phase 3's sepconv check (every
+case, f32 and bf16, the bars unchanged); times the default route's own
+layer (``SeparableConv2d`` unfused: cuDNN's depthwise conv, the BN
+affines, the 1x1 conv) at the two main shapes; and with
+``--baseline=<path>`` times another ``sepconv.cu`` (built beside it; the
+C interface is the same) against this one at every case in both dtypes
+in turns (old, new, new, old), the old results held to the new at the
+case's bar. ``--sepconv-probe`` times the wgmma kernel's probe builds
+(``SEPCONV_BUILDS``: a phase left out, wrong results, times only) in
+turns at the bf16 stride-1 main cases.
 ``--probe-dot`` neither: it times ``csrc/probe_dot.cu`` and its probe
 builds, each with a phase left out, at the probe's two shapes, and prints
 the median phase stamps of a traced launch.
@@ -199,6 +228,21 @@ def median_ms(torch, fn, n=20, warmup=3, hide_launch=False):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(torch, fn, n=50, rounds=5):
+    """Median over ``rounds`` of the host's microseconds a call of ``fn``
+    takes: ``n`` calls enqueued back to back, the card running them after."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / n)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -334,8 +378,8 @@ SEPCONV_CASES = [
          shape=(1, 256, 512, 128), co=256, d=1, relu=True, int8=False),
     dict(fn="fused_sepconv_infer", what="decoder1 (256 -> 256, no ReLU)",
          shape=(1, 256, 512, 256), co=256, d=1, relu=False, int8=False, main=True),
-    # 1536 channels: beyond what the kernel keeps resident in shared memory, so
-    # these take its other variant (the depthwise recomputed per Co tile)
+    # 1536 channels: beyond what the resident kernel holds in shared memory
+    # (its recompute variant took them); the wgmma kernel takes them now
     dict(fn="fused_sepconv_infer_v2", what="exit flow sep3 (1536 -> 2048), output stride 16",
          shape=(1, 64, 128, 1536), co=2048, d=2, relu=False, int8=False),
     dict(fn="fused_sepconv_infer_v3", what="exit flow sep3 (1536 -> 2048), output stride 16",
@@ -461,23 +505,337 @@ def check_sepconv_kernels(torch, sepconv, card, dev, gen):
             launch_kw = dict(dilation=case["d"], pre_relu=case["relu"],
                              stride=case.get("stride", 1), skip=case.get("skip"),
                              x_in=roles["x_in"])
-            kernel_ms = median_ms(torch, lambda: sepconv._launch(x, packed, **launch_kw))
+            launch = lambda: sepconv._launch(x, packed, **launch_kw)  # noqa: E731
+            kernel_ms = median_ms(torch, launch)
+            hidden_ms = median_ms(torch, launch, hide_launch=True)
+            launch_us = host_us(torch, launch)
             plain_ms = median_ms(torch, lambda: plain(*args, **kw), n=10, warmup=1)
             bound_ms, bound_by = sepconv_bound(case, x.element_size(), dname)
             print(f"{card} {case['fn']} {dname} {case['what']} {tuple(x.shape)} -> "
                   f"{tuple(got.shape)} d={case['d']} int8_dot={case['int8']}: max|err| "
                   f"{max_err:.6g} (max|ref| {max_ref:.6g}, int8 step {step:.6g}), mean|err| "
                   f"{mean_err:.6g} (mean|ref| {mean_ref:.6g}) [{rule}: "
-                  f"{'ok' if ok else 'FAIL'}]; kernel {kernel_ms:.4f} ms, plain "
+                  f"{'ok' if ok else 'FAIL'}]; kernel {kernel_ms:.4f} ms (launch hidden "
+                  f"{hidden_ms:.4f} ms; host {launch_us:.2f} us a call), plain "
                   f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             if not ok:
                 fail(f"{case['fn']} {dname} ({case['what']}) disagrees with its plain version")
             if case.get("main"):
+                n, h, w, c = x.shape
+                plan = sepconv.kernel_plan(n, h, w, c, case["co"], case["d"],
+                                           case.get("stride", 1), case.get("skip"), dt,
+                                           case["int8"], case.get("cin", 0))
                 results.setdefault(case["fn"], {})[dname] = dict(
-                    max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, shape=list(x.shape), what=case["what"])
+                    max_abs_err=max_err, ms=kernel_ms, ms_launch_hidden=hidden_ms,
+                    host_us=launch_us, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, shape=list(x.shape), what=case["what"],
+                    kernel=f"sepconv_{plan['kernel']}_kernel" if plan["kernel"] != "recompute"
+                    else "sepconv_kernel")
             del args, roles, ref, got, err, packed, x
     return results
+
+
+# The flagship's fused layers at 1024x2048, batch 1, bf16: (entry point,
+# (N, H, W, C) of the layer's input, Co, dilation, stride, skip, int8_dot,
+# launches a forward). Path A (output stride 16; the first two run only with
+# the entry kernel off, FUSED_STEM False) and path B (output stride 8), as
+# a forward records them (tests/test_torch_sepconv_plan.py derives them on
+# the meta device).
+FLAGSHIP_SEPCONV_LAYERS = [
+    ("fused_sepconv_infer_v2", (1, 512, 1024, 64), 128, 1, 1, None, False, 1),
+    ("fused_sepconv_infer_v2", (1, 512, 1024, 128), 128, 1, 1, None, False, 1),
+    ("fused_sepconv_infer_v2", (1, 256, 512, 128), 256, 1, 1, None, False, 1),
+    ("fused_sepconv_infer_v2", (1, 256, 512, 256), 256, 1, 1, None, False, 2),
+    ("fused_sepconv_infer_v2", (1, 128, 256, 256), 728, 1, 1, None, False, 1),
+    ("fused_sepconv_infer_v2", (1, 64, 128, 728), 728, 1, 1, None, False, 49),
+    ("fused_sepconv_infer_v2", (1, 64, 128, 728), 1024, 1, 1, None, False, 1),
+    ("fused_sepconv_infer_v2", (1, 256, 512, 304), 256, 1, 1, None, False, 1),
+    ("fused_sepconv_infer_v3", (1, 256, 512, 128), 256, 1, 1, None, True, 1),
+    ("fused_sepconv_infer_v3", (1, 256, 512, 256), 256, 1, 1, None, True, 1),
+    ("fused_sepconv_infer_v3", (1, 128, 256, 256), 728, 1, 1, None, True, 1),
+    ("fused_sepconv_infer_v3", (1, 128, 256, 728), 728, 1, 1, None, True, 1),
+    ("fused_sepconv_infer_v3", (1, 128, 256, 728), 728, 2, 1, None, True, 32),
+    ("fused_sepconv_infer_v3_skip", (1, 256, 512, 256), 256, 1, 2, "conv", True, 1),
+    ("fused_sepconv_infer_v3_skip", (1, 128, 256, 728), 728, 1, 1, "conv", True, 1),
+    ("fused_sepconv_infer_v3_skip", (1, 128, 256, 728), 728, 2, 1, "sum", True, 16),
+]
+
+
+def check_sepconv_plans(torch, sepconv, card):
+    """The kernel, tiles, grid, Co split and shared memory as the source
+    picks them (``sepconv_plan``) against the mirror
+    ``ops/sepconv.py::sepconv_plan``, at every ``SEPCONV_CASES`` case in
+    f32 and bf16 and at the flagship's layers; every main case takes the
+    wgmma kernel in bf16, and skip, stride 2 and f32 keep the older kernels' routes."""
+    shapes = [(c["fn"], c["what"], c["shape"], c["co"], c["d"], c.get("stride", 1),
+               c.get("skip"), c["int8"], dt, c.get("main", False))
+              for c in SEPCONV_CASES for dt in (torch.float32, torch.bfloat16)]
+    shapes += [(fn, f"flagship layer x{count}", shape, co, d, stride, skip, int8,
+                torch.bfloat16, False)
+               for fn, shape, co, d, stride, skip, int8, count in FLAGSHIP_SEPCONV_LAYERS]
+    for fn, what, shape, co, d, stride, skip, int8, dt, main in shapes:
+        n, h, w, c = shape
+        kw = dict(stride=stride, skip=skip, dtype=dt, int8_dot=int8)
+        src = sepconv.kernel_plan(n, h, w, c, co, d, cin=128, **kw)
+        mirror = sepconv.sepconv_plan(n, h, w, c, co, d, sms=torch.cuda.get_device_properties(
+            0).multi_processor_count, **kw)
+        dname = dtype_name(dt)
+        print(f"{card} sepconv plan {fn} {dname} {what} {shape} -> {co} d={d} stride={stride} "
+              f"skip={skip} int8_dot={int8}: {src}{'' if src == mirror else f' (mirror {mirror})'}")
+        if src != mirror:
+            fail(f"sepconv_plan differs from the source's for {fn} {dname} {what}")
+        if src["smem"] > 232448:
+            fail(f"sepconv_plan: {src['smem']} bytes of shared memory for {fn} {what}")
+        wgmma = src["kernel"] == "wgmma"
+        if main and dt == torch.bfloat16 and skip is None and not wgmma:
+            fail(f"the main case {fn} {what} does not take the wgmma kernel in bf16")
+        if wgmma and (skip is not None or stride != 1 or dt != torch.bfloat16):
+            fail(f"{fn} {dname} {what}: skip, stride 2 and f32 keep the older kernels' routes")
+
+
+def baseline_sepconv_lib(path):
+    """The library of another ``sepconv.cu`` at ``path`` (same
+    ``sepconv_launch``)."""
+    import ctypes
+
+    lib = baseline_lib(path, "sepconv")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sepconv_launch.argtypes = [p] * 8 + [i] * 12 + [p]
+    lib.sepconv_launch.restype = i
+    return lib
+
+
+def compare_sepconv(torch, sepconv, card, dev, gen, path):
+    """At each case in f32 and bf16, the baseline source ``path`` (another
+    ``sepconv.cu``) and this one on the same packed weights, each median
+    of 20, in turns old, new, new, old; the baseline's result held to this
+    source's at the case's bar (check_sepconv_kernels'). Each turn takes the
+    time as phase 3 does (launch not hidden), with the launch hidden, and
+    the host's microseconds a call. Returns {fn: {what: {dtype: {"old": [ms,
+    ms], "new": [ms, ms], "old_hidden": ..., "new_hidden": ...,
+    "old_host_us": ..., "new_host_us": ...}}}}."""
+    old_lib, new_lib = baseline_sepconv_lib(path), sepconv._lib()
+    results = {}
+    for case in SEPCONV_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = dtype_name(dt)
+            _, _, roles = sepconv_inputs(torch, sepconv, case, dt, gen, dev)
+            x, x_in, skip = roles["x"], roles["x_in"], case.get("skip")
+            packed = sepconv.pack_sepconv(x, *roles["weights"], case["int8"],
+                                          *roles["skip_weights"])
+            kw = dict(dilation=case["d"], pre_relu=case["relu"], stride=case.get("stride", 1),
+                      skip=skip, x_in=x_in)
+            new = sepconv._launch(x, packed, **kw)
+            old = torch.empty_like(new)
+            libs = {"old": (old_lib, old), "new": (new_lib, new)}
+
+            def run(ver):  # both sources' C entry alike, each into its own output
+                lib, out = libs[ver]
+                n, h, w, c = x.shape
+                conv = skip == "conv"
+                rc = lib.sepconv_launch(
+                    x.data_ptr(), x_in.data_ptr() if skip else None, out.data_ptr(),
+                    packed.dwp.data_ptr(), packed.pw.data_ptr(), packed.osb.data_ptr(),
+                    packed.skw.data_ptr() if conv else None,
+                    packed.ska.data_ptr() if conv else None, n, h, w, c, packed.co,
+                    packed.cin if conv else 0, case["d"], case.get("stride", 1),
+                    int(case["relu"]), sepconv._SKIP_CODES[skip], int(dt == torch.bfloat16),
+                    int(case["int8"]), torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    fail(f"{ver} sepconv_launch: error {rc}")
+
+            times = {k: [] for k in ("old", "new", "old_hidden", "new_hidden", "old_host_us",
+                                     "new_host_us")}
+            for ver in ("old", "new", "new", "old"):
+                times[ver].append(median_ms(torch, lambda: run(ver)))
+                times[ver + "_hidden"].append(median_ms(torch, lambda: run(ver),
+                                                        hide_launch=True))
+                times[ver + "_host_us"].append(host_us(torch, lambda: run(ver)))
+            torch.cuda.synchronize()
+            err = (old.float() - new.float()).abs()
+            ref = new.float().abs()
+            step = 127.0 * roles["weights"][4].abs().max().item() if case["int8"] else 0.0
+            if dt == torch.float32:
+                ok = err.max().item() <= 1e-4 * ref.max().item() + 2 * step
+            else:
+                ok = (err.max().item() <= 3e-2 * ref.max().item() + 2 * step
+                      and err.mean().item() <= 2e-3 * ref.mean().item())
+            if not ok:
+                fail(f"baseline sepconv {case['fn']} {dname} {case['what']}: results differ "
+                     f"beyond the bar (max|err| {err.max().item():.6g})")
+            mean = {k: statistics.mean(v) for k, v in times.items()}
+
+            def turns(key, fmt):
+                return " ".join(f"{t:{fmt}}" for t in times[key])
+            print(f"{card} sepconv {case['fn']} {dname} {case['what']} {tuple(x.shape)} -> "
+                  f"{case['co']}: baseline {path} against this source, old/new/new/old: old "
+                  f"{turns('old', '.4f')} ms, new {turns('new', '.4f')} ms, old / new "
+                  f"{mean['old'] / mean['new']:.2f}; launch hidden: old "
+                  f"{turns('old_hidden', '.4f')} ms, new {turns('new_hidden', '.4f')} ms, "
+                  f"old / new {mean['old_hidden'] / mean['new_hidden']:.2f}; host a call: old "
+                  f"{turns('old_host_us', '.2f')} us, new {turns('new_host_us', '.2f')} us; "
+                  f"max|old - new| {err.max().item():.6g}")
+            results.setdefault(case["fn"], {}).setdefault(case["what"], {})[dname] = times
+            del x, x_in, roles, packed, new, old, err, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def check_sepconv_build(card):
+    """ptxas's report of ``csrc/sepconv.cu`` (registers and spills of each
+    kernel, its warnings) and the wgmma kernel's SASS: each specialisation
+    must hold HGMMA (bf16) or IGMMA (s8) and UTMALDG, and neither spill nor
+    draw a wgmma-serialisation warning (C7510-C7520)."""
+    import re
+
+    from segmentron_tpu_torch.ops.kernels import _target
+
+    print_ptxas(card, "sepconv")
+    log = _target("sepconv").with_suffix(".log").read_text()
+    serial = [ln.strip() for ln in log.splitlines() if re.search(r"C75(1\d|20)", ln)]
+    if serial:
+        fail("ptxas serialises wgmma in csrc/sepconv.cu:\n" + "\n".join(serial))
+    spills = ptxas_spills("sepconv", r"sepconv_wgmma_kernel")
+    print(f"{card} ptxas sepconv sepconv_wgmma_kernel spills (stores, loads): {spills}")
+    if len(spills) != 8 or any(st or ld for st, ld in spills.values()):
+        fail(f"the wgmma sepconv kernel spills, or lacks a specialisation: {spills}")
+    counts = print_sass_mix(card, "sepconv", r"sepconv_wgmma_kernel", top=12)
+    if not counts or len(counts) != 8 or any(
+            c["HGMMA"] + c["IGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
+        fail("a wgmma sepconv kernel lacks HGMMA/IGMMA or UTMALDG instructions")
+
+
+def default_layer_ms(torch, card, dev, gen):
+    """The default route's own layer at the shapes of the main v3 and v2
+    cases, bf16, channels-last, each median of 20 (CUDA events, launches
+    hidden): ``SeparableConv2d`` unfused (ReLU, cuDNN's depthwise conv, the
+    BN affine, the 1x1 conv, its BN affine) and each piece alone. Returns
+    {what: {piece: ms}}."""
+    import torch.nn.functional as F
+
+    from segmentron_tpu_torch.modules import SeparableConv2d
+
+    results = {}
+    for case in SEPCONV_CASES:
+        if not case.get("main") or case.get("skip") or case["fn"] == "fused_sepconv_infer":
+            continue
+        n, h, w, c = case["shape"]
+        m = SeparableConv2d(c, case["co"], dilation=case["d"], relu_first=case["relu"])
+        m = m.to(dev).eval().to(memory_format=torch.channels_last)
+        for conv in (m.depthwise, m.pointwise):  # the norms keep f32 statistics, as the model's
+            conv.to(torch.bfloat16)
+        x = torch.randn(n, c, h, w, generator=gen).to(dev, torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        with torch.inference_mode():
+            dw = m.depthwise(x.relu())
+            y = m.dw_bn(dw)
+            pw = m.pointwise(y)
+            pieces = {"layer": lambda: m(x), "relu": lambda: x.relu(),
+                      "depthwise (cuDNN)": lambda: m.depthwise(x),
+                      "affine": lambda: m.dw_bn(dw), "1x1 conv": lambda: m.pointwise(y),
+                      "affine after": lambda: m.pw_bn(pw),
+                      "1x1 as a matmul": lambda: torch.matmul(
+                          y.permute(0, 2, 3, 1).reshape(-1, c),
+                          m.pointwise.weight.reshape(case["co"], c).t())}
+            times = {k: median_ms(torch, fn, hide_launch=True) for k, fn in pieces.items()}
+        print(f"{card} default route's layer at {case['fn']}'s {case['what']} {case['shape']} -> "
+              f"{case['co']} d={case['d']}, bf16: " + "; ".join(
+                  f"{k} {v:.4f} ms" for k, v in times.items()))
+        results[case["what"]] = times
+        del m, x, dw, y, pw
+    return results
+
+
+# Probe builds of csrc/sepconv.cu's wgmma kernel (--sepconv-probe): a phase
+# left out, wrong results, times only.
+SEPCONV_BUILDS = {
+    "full": (),
+    "no taps": ("-DSEPCONV_WG_NO_TAPS",),
+    "no products": ("-DSEPCONV_WG_NO_MMA",),
+    "neither": ("-DSEPCONV_WG_NO_TAPS", "-DSEPCONV_WG_NO_MMA"),
+    "neither, no input box": ("-DSEPCONV_WG_NO_TAPS", "-DSEPCONV_WG_NO_MMA", "-DSEPCONV_WG_NO_X"),
+    "neither, no weights": ("-DSEPCONV_WG_NO_TAPS", "-DSEPCONV_WG_NO_MMA", "-DSEPCONV_WG_NO_W"),
+    "neither, no loads": ("-DSEPCONV_WG_NO_TAPS", "-DSEPCONV_WG_NO_MMA", "-DSEPCONV_WG_NO_X",
+                          "-DSEPCONV_WG_NO_W"),
+}
+
+
+def sepconv_probe(torch, sepconv, card):
+    """``--sepconv-probe``: the wgmma kernel and its probe builds
+    (``SEPCONV_BUILDS``, built in parallel) at the bf16 stride-1 main
+    cases, timed in turns (each build, then each again in reverse order;
+    median of 20 each, launches hidden)."""
+    import ctypes
+
+    from segmentron_tpu_torch.ops import kernels
+
+    procs, libs = {}, {}
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    for name, flags in SEPCONV_BUILDS.items():
+        kernels.DEFINES["sepconv"] = flags
+        out = kernels._target("sepconv")
+        if not out.exists():
+            procs[name] = (subprocess.Popen(
+                [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags, "-o", str(out),
+                 str(kernels._SRC / "sepconv.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), out)
+        libs[name] = out
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for sepconv.cu {name}:\n{log}")
+    print(f"{card} probe builds of sepconv.cu: {time.perf_counter() - t0:.2f} s")
+    kernels.DEFINES["sepconv"] = ()
+    loaded = {}
+    for name, path in libs.items():
+        kernels._loaded["sepconv"] = ctypes.CDLL(str(path))
+        loaded[name] = sepconv._lib()
+    dev, gen, results = torch.device("cuda"), torch.Generator().manual_seed(0), {}
+    for case in SEPCONV_CASES:
+        if not case.get("main") or case.get("skip"):
+            continue
+        _, _, roles = sepconv_inputs(torch, sepconv, case, torch.bfloat16, gen, dev)
+        x = roles["x"]
+        packed = sepconv.pack_sepconv(x, *roles["weights"], case["int8"])
+        times = {}
+        for name in [*loaded, *reversed(loaded)]:
+            kernels._loaded["sepconv"] = loaded[name]
+            times.setdefault(name, []).append(median_ms(
+                torch, lambda: sepconv._launch(x, packed, case["d"], case["relu"]),
+                hide_launch=True))
+        torch.cuda.synchronize()
+        print(f"{card} {case['fn']} bfloat16 {case['what']} probe builds, ms (in turns): "
+              + "; ".join(f"{b} {' '.join(f'{t:.4f}' for t in v)}" for b, v in times.items()))
+        results.setdefault(case["fn"], {})[case["what"]] = times
+        del x, roles, packed
+    kernels._loaded["sepconv"] = loaded["full"]
+    print(json.dumps(results))
+    return 0
+
+
+def sepconv_only(torch, sepconv, card):
+    """``--sepconv``: build ``csrc/sepconv.cu`` alone, check its ptxas
+    report, SASS and plans, check every case in both dtypes, optionally
+    against a baseline source."""
+    from segmentron_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    build(["sepconv"])
+    print(f"{card} build sepconv: {time.perf_counter() - t0:.2f} s")
+    check_sepconv_build(card)
+    check_sepconv_plans(torch, sepconv, card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
+    results = {"sepconv": check_sepconv_kernels(torch, sepconv, card, dev, gen)}
+    results["default_layer_ms"] = default_layer_ms(torch, card, dev, gen)
+    for arg in sys.argv[1:]:
+        if arg.startswith("--baseline="):
+            results["baseline"] = compare_sepconv(torch, sepconv, card, dev, gen,
+                                                  arg.split("=", 1)[1])
+    print(json.dumps(results))
+    return 0
 
 
 # ----------------------------------------------------------- flash attention
@@ -1257,14 +1615,18 @@ def print_sass_mix(card, name, kernels_re, top=14):
         ops = collections.Counter(m.group(1) for m in re.finditer(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T] )?([A-Z][A-Z0-9_]*)", part))
         short = re.search(r"((?:dq|dkv|flash)_(?:f32|bf16)_kernel)(?:ILi(\d+)ELi(\d+)E)?", fn)
-        label = (f"{short.group(1)}<{short.group(2)}, {short.group(3)}>"
+        sep = re.search(r"(sepconv_wgmma_kernel)ILi(\d)ELi(\d+)ELi(\d)E", fn)
+        label = (f"{sep.group(1)}<{'s8' if sep.group(2) == '1' else 'bf16'}, N {sep.group(3)}, "
+                 f"d {sep.group(4)}>"
+                 if sep else f"{short.group(1)}<{short.group(2)}, {short.group(3)}>"
                  if short and short.group(2) else short.group(1) if short else fn[:60])
         counts[label] = ops
-        # an HGMMA that sets gsb0 is waited on before the next issues
-        waited = len(re.findall(r"HGMMA[^;]*gsb0", part))
+        # an HGMMA (IGMMA: s8) that sets gsb0 is waited on before the next issues
+        waited = len(re.findall(r"[HI]GMMA[^;]*gsb0", part))
         print(f"{card} sass {name} {label}: {sum(ops.values())} instructions: "
               + ", ".join(f"{op} {c}" for op, c in ops.most_common(top))
-              + f"; HGMMA {ops['HGMMA']} ({waited} with gsb0), UTMALDG {ops['UTMALDG']}")
+              + f"; HGMMA {ops['HGMMA']}, IGMMA {ops['IGMMA']} ({waited} with gsb0), "
+              f"UTMALDG {ops['UTMALDG']}, UTMASTG {ops['UTMASTG']}")
         ops["HGMMA waited alone"] = waited
     return counts
 
@@ -1991,9 +2353,12 @@ def print_ptxas(card, name):
             # the mangled name's kernel and its template arguments (Lb1E: int8;
             # the flash backward's Dv and, in f32, the Dk its sums are sized for)
             m = re.search(r"\d(probe_dot_(?:wgmma|mma_sync))(?:ILb([01])E)?", ln)
+            sep = re.search(r"\d(sepconv_(?:wgmma_|resident_)?kernel)I(\w+?)EEv", ln)
             mb = re.search(r"\d((?:dq|dkv|flash)_(?:f32|bf16)_kernel)ILi(\d+)E(?:Li(\d+)E)?",
                            ln)
-            if m:
+            if sep:  # <T, DOT> of the older kernels, <DOT, N> of the wgmma kernel
+                fn = f"{sep.group(1)}<{sep.group(2)}>"
+            elif m:
                 arg = m.group(2) and ("<int8>" if m.group(2) == "1" else "<bf16>")
                 fn = m.group(1) + (arg or "")
             elif mb and mb.group(1).startswith("flash_"):  # <padded Dk, Dv of a block>
@@ -2128,7 +2493,8 @@ def probe_modes(torch, card, cfg, defaults, counts):
 
 def probe(torch, card):
     """Cycle shares of the fused separable conv's phases (see the
-    module's docstring)."""
+    module's docstring): the wgmma kernel's (the bf16 stride-1 cases
+    without skip) or the resident kernel's (the block end)."""
     import ctypes
 
     from segmentron_tpu_torch.ops import kernels, sepconv
@@ -2145,16 +2511,29 @@ def probe(torch, card):
         lib.sepconv_probe(None, 1)
         fn(*args, **kw)
         torch.cuda.synchronize()
-        counts = (ctypes.c_ulonglong * 4)()
+        counts = (ctypes.c_ulonglong * 11)()
         if lib.sepconv_probe(counts, 0) != 0:
             fail("sepconv_probe failed")
-        taps, phase2, epilogue, blocks = (float(c) for c in counts)
+        head = f"{card} {case['fn']} bfloat16 {case['what']} int8_dot={case['int8']}"
+        taps, waits, epilogue, total, blocks, tap_in, tap_sync = (float(c) for c in counts[4:])
+        if blocks:
+            kc = 128 if case["int8"] else 64
+            n_steps = -(-case["shape"][3] // kc)
+            print(f"{head}: wgmma kernel, {int(blocks)} items on persistent blocks, "
+                  f"{total / blocks:.0f} cycles an item (consumer thread 0): taps "
+                  f"{taps / total:.3f} ({taps / blocks / n_steps:.0f}"
+                  f" cycles a {kc}-channel step, their products in flight; of which the wait for "
+                  f"the input {tap_in / taps:.3f}, the closing barrier {tap_sync / taps:.3f}), "
+                  f"waits on products and weights {waits / total:.3f}, epilogue "
+                  f"{epilogue / total:.3f}")
+            continue
+        taps, phase2, epilogue, blocks = (float(c) for c in counts[:4])
         total = taps + phase2
         n_chunks = -(-case["shape"][3] // 32)
-        print(f"{card} {case['fn']} bfloat16 {case['what']} int8_dot={case['int8']}: "
-              f"{int(blocks)} blocks, {total / blocks:.0f} cycles a block: taps "
-              f"{taps / total:.3f} ({taps / blocks / n_chunks:.0f} cycles a 32-channel chunk), "
-              f"products {(phase2 - epilogue) / total:.3f}, epilogue {epilogue / total:.3f}")
+        print(f"{head}: resident kernel, {int(blocks)} blocks, {total / blocks:.0f} cycles a "
+              f"block: taps {taps / total:.3f} ({taps / blocks / n_chunks:.0f} cycles a 32-channel "
+              f"chunk), products {(phase2 - epilogue) / total:.3f}, epilogue "
+              f"{epilogue / total:.3f}")
     return 0
 
 
@@ -2274,6 +2653,10 @@ def main():
         return flash_bwd_only(torch, attention, card)
     if "--flash-fwd" in sys.argv[1:]:
         return flash_fwd_only(torch, attention, card)
+    if "--sepconv" in sys.argv[1:]:
+        return sepconv_only(torch, sepconv, card)
+    if "--sepconv-probe" in sys.argv[1:]:
+        return sepconv_probe(torch, sepconv, card)
     if "--flash-fwd-probe" in sys.argv[1:]:
         return flash_fwd_probe(torch, attention, card)
     for arg in sys.argv[1:]:
@@ -2323,9 +2706,15 @@ def main():
     print_ptxas(card, "attention")
     check_fwd_sass(card)
     check_fwd_plans(torch, attention, card)
+    check_sepconv_build(card)
+    check_sepconv_plans(torch, sepconv, card)
     flash_bwd_results = check_flash_bwd_kernels(torch, attention, card, dev, gen)
     flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)
+    for name in ("fused_sepconv_infer_v3", "fused_sepconv_infer_v2"):
+        if sep_results[name]["bfloat16"]["kernel"] != "sepconv_wgmma_kernel":
+            fail(f"{name}'s main case does not take sepconv_wgmma_kernel: "
+                 f"{sep_results[name]['bfloat16']['kernel']}")
 
     # --------------------------------------------------- 3b. ceiling probe
     probe_dot_results = check_probe_dot(torch, probe_dot, card, dev, gen)
@@ -2694,7 +3083,8 @@ def main():
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], max_abs_err=m["max_abs_err"], ms=m["ms"],
              plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-             library_ms=m.get("library_ms"))
+             library_ms=m.get("library_ms"),
+             **{k: m[k] for k in ("kernel", "ms_launch_hidden", "host_us") if k in m})
         for name, (source, replaces, m) in measured.items()
     ]}
     summary = {"card": smi, "forward_ms": fwd_ms, "img_per_s": 1e3 / fwd_ms,

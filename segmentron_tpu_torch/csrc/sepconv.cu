@@ -19,43 +19,72 @@
 // (0.0351 ms at the bf16 peak, 0.0176 ms at the int8 peak): bound by operations
 // in bf16 and by bytes in int8.
 //
-// Design. A 256-thread block owns 8 x 16 output pixels. It walks the input
-// channels in chunks of 32: the chunk of the haloed input tile comes into
-// shared memory (zero outside the image), the nine taps, the mid affine (and
-// the int8 rounding) run on the CUDA cores into an A chunk, and the product
-// with the matching chunk of the packed pointwise weights accumulates in
-// registers, 128 output channels at a time: mma.sync m16n8k16 (bf16) or
-// m16n8k32 (s8) on the tensor cores, f32 FMA on the CUDA cores for f32 I/O.
-// The epilogue applies the out affine and the residual; a conv skip is a second
-// product over chunks of x_in (picked at the stride) with the main result
-// parked in shared memory meanwhile. The accumulator of all output channels
-// does not fit in registers (128 px x 728 x 4 B = 372 KB), so Co is tiled by
-// 128. Two kernels share these stages:
+// Three kernels share this source; the host picks one a call (make_plan;
+// sepconv_plan reports the choice, ops/sepconv.py::sepconv_plan mirrors it):
 //
-//  * sepconv_resident_kernel (tensor-core products, when the tile's whole
-//    depthwise result fits in shared memory: up to ~730 channels in bf16,
-//    ~1400 as int8): phase 1 computes the depthwise result of ALL input
+//  * sepconv_wgmma_kernel<DOT, N, D> takes bf16 I/O at stride 1 without
+//    skip, dilation D of 1 or 2, C and Co multiples of 8: every bf16 layer
+//    of _kernel_v2, _kernel_v3 (int8_dot or not) and _kernel on the
+//    flagship's paths. Persistent blocks, one an SM, walk the items (8 x 8
+//    output pixels = the 64 rows of a wgmma A tile, by 2 N output channels,
+//    N = 192 where 384 divides the padded Co (728 -> 768: two items a tile),
+//    else 128). 384 threads: two consumer warpgroups, each one m64nNk16 bf16
+//    or m64nNk32 s8 wgmma chain over its N columns with both operands in
+//    shared memory (setmaxnreg: 232 registers a consumer thread, 40 a
+//    producer); in the producer warpgroup one thread streams the weight
+//    ring (2 N rows x 128 bytes of K a stage, 128-byte swizzled, 2-4 stages)
+//    and each item's out affine, another the input stages (2 or 3): the
+//    haloed box of the step's channels (a 4-D TMA map over NHWC x; zeros
+//    outside the image and past C replace the old kernels' clamped loads)
+//    and the step's depthwise weights. Both run ahead across items. K runs in
+//    steps of 128 bytes (64 bf16 or 128 s8 channels). The taps of step k + 1
+//    run on the CUDA cores while step k's products are in flight: a thread
+//    takes 4 channels of a 2 x 2 quad of pixels d apart, so its 16 loads feed
+//    36 taps a channel; the ReLU and the bf16 -> f32 conversion run once per
+//    loaded value; the result goes straight into the next of three A
+//    slots, K-major and 128-byte swizzled, as wgmma reads it (both
+//    warpgroups read every slot, so the slot written is step k - 2's, whose
+//    products both have waited on before the barrier that closed step k's
+//    taps). The epilogue stages
+//    each 64-channel box of the out affine's result in an A slot (swizzled:
+//    conflict-free fragment stores) and writes it out in 16-byte vectors.
+//    The taps' order ((ky, kx), one fmaf a tap) and the separately rounded
+//    affines are depthwise()'s: the kernels agree bitwise up to the order of
+//    the products' sums.
+//    What bounds it on an H100 (chip_smoke.py --probe, --sepconv-probe):
+//    shared-memory traffic and the stream of loads, not the tensor cores. A
+//    step of the v2 main case moves ~190 KB through shared memory (48 KB of
+//    weights written by TMA and 48 KB read by wgmma, 16 KB of A read, the
+//    taps' 62 KB, the input box) against 128 bytes a cycle; the taps take
+//    ~60 % of a block's cycles at ~20 % of the FMA peak. With the taps and the
+//    products left out, the loads alone take ~75 % of the v3 main case's time:
+//    each item re-reads its 2 N x K weights, and each 64-pixel tile reads its
+//    haloed input twice (once an item), ~600 MB from L2 at v3's main case.
+//
+//  * sepconv_resident_kernel (the first version; f32 I/O with int8_dot, the block ends'
+//    conv and sum skips, stride 2, and bf16 shapes the wgmma kernel does not
+//    take, when the tile's whole depthwise result fits in shared memory): a
+//    256-thread block owns 8 x 16 output pixels and walks the input channels
+//    in chunks of 32: phase 1 computes the depthwise result of ALL input
 //    channels once into a resident A tile, input chunks double-buffered with
-//    cp.async; phase 2 walks the Co tiles, streaming weight chunks (cp.async,
-//    the next step's 2 or 4 chunks arriving while this step's are multiplied)
-//    against the resident A, and sends each tile's results out through shared
-//    memory in 16-byte vectors. Nothing is recomputed. Where there are fewer
-//    pixel tiles than SMs, the Co tiles are split over several blocks (each
+//    cp.async; phase 2 walks the Co tiles of 128, streaming weight chunks
+//    against the resident A (mma.sync m16n8k16 bf16 or m16n8k32 s8), and
+//    sends each tile's results out through shared memory in 16-byte vectors.
+//    The epilogue applies the out affine and the residual; a conv skip is a
+//    second product over chunks of x_in (picked at the stride) with the main
+//    result parked in shared memory meanwhile. Where there are fewer pixel
+//    tiles than SMs, the Co tiles are split over several blocks (each
 //    recomputes phase 1).
-//  * sepconv_kernel (f32 products, and any shape the first does not take): a
-//    block owns one Co tile and recomputes the depthwise chunk, so that work
-//    is done ceil(Co/128) times; Co tiles of one pixel tile are neighbours in
-//    the grid, so they find the input in L2.
+//  * sepconv_kernel (the first version; f32 products, and any shape the others do not
+//    take): a block owns one Co tile and recomputes the depthwise chunk, so
+//    that work is done ceil(Co/128) times; f32 FMA on the CUDA cores.
 //
 // Channels are padded with zeros to a multiple of 32 in the packed weights,
-// and read as zeros from the input. What bounds the resident kernel is not the
-// tensor cores. The clock64 probe below (chip_smoke.py --probe) gave for the
-// middle-flow int8 layer on an H100, per block: the taps 47 % (4,500 cycles
-// per 32-channel chunk, the CUDA cores' instruction issue: a load, two
-// conversions, a ReLU and two FMA per tap and channel pair), the products
-// 39 % (~630 cycles per chunk and Co tile, shared-memory bandwidth: a warp's
-// 32 x 64 tile reads 6 KB of fragments for 16 or 32 mma), the epilogue 14 %.
-// The resident tile leaves room for one block of 8 warps per SM.
+// and read as zeros from the input. The clock64 probe (chip_smoke.py
+// --probe) gave for the resident kernel at the middle-flow int8 layer on an
+// H100, per block: the taps 47 % (4,500 cycles per 32-channel chunk: a load,
+// two conversions, a ReLU and two FMA per tap and channel pair), the products
+// 39 % (shared-memory bandwidth under mma.sync), the epilogue 14 %.
 //
 // C interface: sepconv_launch returns cudaGetLastError() after the launch.
 
@@ -65,16 +94,26 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"  // mbarriers, TMA, wgmma (bf16 and s8), tensor maps
+
 // Built with -DSEPCONV_PROFILE (``chip_smoke.py --probe``), the resident
-// kernel sums thread 0's clock64 cycles per phase over its blocks.
+// kernel and the wgmma kernel sum thread 0's clock64 cycles per phase over
+// their blocks.
 #ifdef SEPCONV_PROFILE
-__device__ unsigned long long g_cycles[4];  // taps, phase 2, of which epilogue, blocks
+__device__ unsigned long long g_cycles[4];     // resident: taps, phase 2, of which epilogue, blocks
+// wgmma: taps (of which waits for the input, and the barrier after), waits on
+// products, epilogue, all, blocks
+__device__ unsigned long long g_cycles_wg[7];
 #define PROBE(var) const long long var = clock64()
 #define PROBE_ADD(slot, from, to) \
   if (threadIdx.x == 0) atomicAdd(&g_cycles[slot], static_cast<unsigned long long>((to) - (from)))
+#define PROBE_WG_ADD(slot, from, to) \
+  if (threadIdx.x == 0)                \
+  atomicAdd(&g_cycles_wg[slot], static_cast<unsigned long long>((to) - (from)))
 #else
 #define PROBE(var)
 #define PROBE_ADD(slot, from, to)
+#define PROBE_WG_ADD(slot, from, to)
 #endif
 
 namespace {
@@ -736,6 +775,511 @@ __global__ void __launch_bounds__(kThreads, 2) sepconv_resident_kernel(const Arg
   PROBE_ADD(3, 0, 1);
 }
 
+// ------------------------------------------------------ the wgmma kernel
+// sepconv_wgmma_kernel<DOT, N, D>: bf16 I/O, stride 1, no skip, dilation D
+// (1 or 2), C and Co multiples of 8 (the design is described at the top).
+constexpr int kWgTH = 8, kWgTW = 8, kWgM = kWgTH * kWgTW;  // a block's pixels: A's 64 rows
+constexpr int kWgRow = 128;                   // bytes of K a step: one 128-byte swizzle row
+constexpr int kWgConsumers = 256;             // two warpgroups
+constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
+// 384 threads cap a thread at 168 registers at launch; setmaxnreg then moves
+// them from the producer (40 a thread) to the consumers (232): 64,512 of 65,536
+constexpr int kWgConsumerRegs = 232, kWgProducerRegs = 40;
+constexpr int kWgABytes = kWgM * kWgRow;      // an A slot, or an epilogue box: 8 KB
+constexpr int kWgASlots = 3;                  // A slots: steps k - 1, k, k + 1
+constexpr int kWgMaxStages = 4;               // weight-ring stages at most
+constexpr int kWgMaxInStages = 3;             // input stages at most
+constexpr int kWgBarBytes = 8 * (2 * kWgMaxInStages + 4 + 2 * kWgMaxStages);
+
+// Input channels a K step: one 128-byte row of A (64 bf16 or 128 s8).
+__host__ __device__ constexpr int wg_kc(int dot) { return dot == kDotS8 ? 128 : 64; }
+// Bytes of a step's input stage: the haloed input box, [8 + 2d][8 + 2d][kc]
+// bf16, then the step's depthwise weights, [11][kc] f32 (taps, mid scale, mid
+// bias).
+__host__ __device__ constexpr int wg_box_bytes(int d, int dot) {
+  return (kWgTH + 2 * d) * (kWgTW + 2 * d) * wg_kc(dot) * 2;
+}
+__host__ __device__ constexpr int wg_in_bytes(int d, int dot) {
+  return wg_box_bytes(d, dot) + 11 * wg_kc(dot) * 4;
+}
+// Bytes of the out affine of an item's 2 N channels, [2 boxes][2][N] f32.
+__host__ __device__ constexpr int wg_osb_bytes(int n) { return 16 * n; }
+// Shared memory besides the weight ring and the input stages: 1 KB of
+// alignment slack, three A slots (the epilogue's staging too), two slots of
+// the out affine, the mbarriers.
+__host__ __device__ constexpr int wg_fixed_bytes(int n) {
+  return 1024 + kWgASlots * kWgABytes + 2 * wg_osb_bytes(n) + kWgBarBytes;
+}
+// Bytes of a weight-ring stage: 2 N rows (both warpgroups' columns) of a step.
+__host__ __device__ constexpr int wg_stage_bytes(int n) { return 2 * n * kWgRow; }
+
+struct WgArgs {
+  int co, relu;
+  int tiles_x;       // 8-column tiles across the image
+  int tiles;         // 8 x 8 tiles of an image
+  int co_blocks;     // 2 N output channels each
+  int items;         // co_blocks x tiles x n: (Co block, tile, image), Co block fastest
+  int steps;         // K steps: ceil(c / kc)
+  int stages;        // weight-ring stages
+  int in_stages;     // input stages
+  int h, w;          // the image
+  void* out;         // (n, h, w, co) bf16
+};
+
+// Nine taps, the mid affine (and the int8 rounding) of a K step into the A
+// slot a: 64 pixel rows of kc channels, K-major, 128-byte swizzled, as wgmma
+// reads it. The step's input stage (zeros outside the image and past c, by
+// TMA) is the box [8 + 2d][8 + 2d][kc] bf16 from (r0 - d, c0 - d), then the
+// step's weights [11][kc] f32. A thread takes 4 channels of a 2 x 2 quad of
+// output pixels d apart (rows rb, rb + d, columns cb, cb + d): the 16 input
+// pixels it loads, rows rb + m d and columns cb + n d (m, n < 4), each feed
+// every tap of the quad that reads them, the ReLU and the bf16 -> f32
+// conversion run once per loaded value, and the 16 loads issue before any
+// of their uses. 16 quads tile the 8 x 8 pixels for d in {1, 2}. Each
+// output's sum runs over (ky, kx) in order, one fmaf a tap, and the affine
+// rounds the product and the sum separately: the arithmetic of depthwise().
+template <int DOT, int D>
+__device__ __forceinline__ void wg_depthwise(const WgArgs& p, const char* stage, char* a) {
+#ifdef SEPCONV_WG_NO_TAPS
+  if (p.steps > 0) return;  // probe build: the products of whatever A holds
+#endif
+  constexpr int KC = wg_kc(DOT), kVecs = KC / 4, kQuadStep = kWgConsumers / kVecs;
+  const int v = threadIdx.x % kVecs;
+  const __nv_bfloat16* in = reinterpret_cast<const __nv_bfloat16*>(stage);
+  float w[9][4], ms[4], mb[4];
+  {
+    const float* src = reinterpret_cast<const float*>(stage + wg_box_bytes(D, DOT)) + 4 * v;
+    float4 t[11];
+#pragma unroll
+    for (int i = 0; i < 11; ++i) t[i] = *reinterpret_cast<const float4*>(src + i * KC);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      w[i][0] = t[i].x; w[i][1] = t[i].y; w[i][2] = t[i].z; w[i][3] = t[i].w;
+    }
+    ms[0] = t[9].x; ms[1] = t[9].y; ms[2] = t[9].z; ms[3] = t[9].w;
+    mb[0] = t[10].x; mb[1] = t[10].y; mb[2] = t[10].z; mb[3] = t[10].w;
+  }
+  constexpr int d = D, iw = kWgTW + 2 * D;
+  const __nv_bfloat162 zero2 = __float2bfloat162_rn(0.f);
+#pragma unroll 1
+  for (int quad = threadIdx.x / kVecs; quad < 16; quad += kQuadStep) {
+    const int qr = quad / 4, qc = quad % 4;
+    const int rb = (qr / d) * 2 * d + qr % d, cb = (qc / d) * 2 * d + qc % d;
+    float acc[2][2][4];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[jj][ii][c] = 0.f;
+    const __nv_bfloat16* corner = in + (rb * iw + cb) * KC + 4 * v;
+    uint2 raw[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        raw[m][n] = *reinterpret_cast<const uint2*>(corner + (m * d * iw + n * d) * KC);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      float x[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw[m][n].x);
+        __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw[m][n].y);
+        if (p.relu) {
+          lo = __hmax2(lo, zero2);
+          hi = __hmax2(hi, zero2);
+        }
+        const float2 f0 = __bfloat1622float2(lo), f1 = __bfloat1622float2(hi);
+        x[n][0] = f0.x; x[n][1] = f0.y; x[n][2] = f1.x; x[n][3] = f1.y;
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int ky = m - jj;  // input row m feeds output row jj through tap row ky
+        if (ky < 0 || ky > 2) continue;
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[jj][ii][c] = fmaf(x[ii + kx][c], w[ky * 3 + kx][c], acc[jj][ii][c]);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int mrow = (rb + jj * d) * kWgTW + cb + ii * d;  // the pixel's row of A
+        float y[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) y[c] = __fadd_rn(__fmul_rn(acc[jj][ii][c], ms[c]), mb[c]);
+        char* dst = a + mrow * kWgRow;
+        if constexpr (DOT == kDotS8) {
+          uint32_t packed = 0;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            packed |= (uint32_t(__float2int_rn(fminf(fmaxf(y[c], -127.f), 127.f))) & 0xFFu)
+                      << (8 * c);
+          *reinterpret_cast<uint32_t*>(dst + ((((v / 4) ^ mrow) & 7) << 4) + (v % 4) * 4) = packed;
+        } else {
+          *reinterpret_cast<uint2*>(dst + ((((v / 2) ^ mrow) & 7) << 4) + (v % 2) * 8) =
+              make_uint2(bf16x2(y[0], y[1]), bf16x2(y[2], y[3]));
+        }
+      }
+  }
+}
+
+template <int DOT, int N, int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    sepconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_dw,
+                         const __grid_constant__ CUtensorMap map_w,
+                         const __grid_constant__ CUtensorMap map_osb, const WgArgs p) {
+  using Acc = typename std::conditional<DOT == kDotS8, int, float>::type;
+  constexpr int KC = wg_kc(DOT), kStage = wg_stage_bytes(N), kAccN = N / 2;
+  constexpr int kIn = wg_in_bytes(D, DOT), kBox = wg_box_bytes(D, DOT), kOsb = 4 * N;
+  extern __shared__ char smem_raw[];
+  char* ring = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  char* a_sm = ring + p.stages * kStage;
+  char* in_sm = a_sm + kWgASlots * kWgABytes;
+  float* osb_sm = reinterpret_cast<float*>(in_sm + p.in_stages * kIn);
+  uint64_t* full_in = reinterpret_cast<uint64_t*>(osb_sm + 2 * kOsb);
+  uint64_t* empty_in = full_in + kWgMaxInStages;
+  uint64_t* full_osb = empty_in + kWgMaxInStages;
+  uint64_t* empty_osb = full_osb + 2;
+  uint64_t* full_w = empty_osb + 2;
+  uint64_t* empty_w = full_w + kWgMaxStages;
+  const int S = p.stages, SI = p.in_stages, steps = p.steps;
+  // item it: output channels n0.., pixels (r0.., c0..) of image img
+  auto coords = [&](int it, int& n0, int& r0, int& c0, int& img) {
+    const int tile = (it / p.co_blocks) % p.tiles;
+    n0 = (it % p.co_blocks) * 2 * N;
+    r0 = (tile / p.tiles_x) * kWgTH;
+    c0 = (tile % p.tiles_x) * kWgTW;
+    img = it / (p.co_blocks * p.tiles);
+  };
+  PROBE(t0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SI; ++s) {
+      mbar_init(&full_in[s], 1);
+      mbar_init(&empty_in[s], kWgConsumers / 32);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full_osb[s], 1);
+      mbar_init(&empty_osb[s], kWgConsumers / 32);
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full_w[s], 1);
+      mbar_init(&empty_w[s], kWgConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWgConsumers) {  // ---------------------------- producers
+    setmaxnreg_dec<kWgProducerRegs>();
+    // Two threads issue every load, each stream in the order the consumers
+    // take it, running ahead across items as far as its slots allow: the
+    // first warp the weight ring and each item's out affine, the second the
+    // input stages (haloed box and depthwise weights).
+    if (threadIdx.x == kWgConsumers) {
+      for (int it = blockIdx.x, t = 0, w = 0; it < p.items; it += gridDim.x, ++t) {
+        const int n0 = (it % p.co_blocks) * 2 * N;
+        const int o = t & 1;
+        mbar_wait(&empty_osb[o], ((t >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full_osb[o], wg_osb_bytes(N));
+        tma_load_3d(osb_sm + o * kOsb, &map_osb, n0, 0, 0, &full_osb[o]);
+        tma_load_3d(osb_sm + o * kOsb + 2 * N, &map_osb, n0 + N, 0, 0, &full_osb[o]);
+        for (int j = 0; j < steps; ++j, ++w) {
+          const int s = w % S;
+          mbar_wait(&empty_w[s], ((w / S) & 1) ^ 1);
+#ifdef SEPCONV_WG_NO_W
+          mbar_arrive(&full_w[s]);
+#else
+          mbar_arrive_expect_tx(&full_w[s], kStage);
+          // rows past cop, and columns past cp, arrive as zeros
+          tma_load_3d(ring + s * kStage, &map_w, j * KC, n0, 0, &full_w[s]);
+          tma_load_3d(ring + s * kStage + N * kWgRow, &map_w, j * KC, n0 + N, 0, &full_w[s]);
+#endif
+        }
+      }
+    } else if (threadIdx.x == kWgConsumers + 32) {
+      for (int it = blockIdx.x, u = 0; it < p.items; it += gridDim.x) {
+        int n0, r0, c0, img;
+        coords(it, n0, r0, c0, img);
+        for (int j = 0; j < steps; ++j, ++u) {
+          const int s = u % SI;
+          mbar_wait(&empty_in[s], ((u / SI) & 1) ^ 1);
+#ifdef SEPCONV_WG_NO_X
+          mbar_arrive_expect_tx(&full_in[s], kIn - kBox);
+#else
+          mbar_arrive_expect_tx(&full_in[s], kIn);
+          tma_load_4d(in_sm + s * kIn, &map_x, j * KC, c0 - D, r0 - D, img, &full_in[s]);
+#endif
+          tma_load_3d(in_sm + s * kIn + kBox, &map_dw, j * KC, 0, 0, &full_in[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  setmaxnreg_inc<kWgConsumerRegs>();
+  // the warpgroup, uniform over its warps for the compiler
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x % 32, wt = threadIdx.x % 128;
+  const int g = lane / 4, q = lane % 4, row = (wt / 32) * 16 + g;
+  Acc acc[kAccN];
+#pragma unroll
+  for (int i = 0; i < kAccN; ++i) acc[i] = Acc(0);
+  fence_regs(acc);
+#ifdef SEPCONV_PROFILE
+  long long taps_cycles = 0, wait_cycles = 0, in_cycles = 0, sync_cycles = 0, epi_cycles = 0;
+  int n_items = 0;
+#endif
+  int u = 0, w = 0;  // input stages and ring stages taken, as the producers count them
+  // input stage u's taps into A slot u % 3, then both warpgroups meet: the
+  // slot is complete and visible to wgmma. The slot last held step u - 3,
+  // whose products both warpgroups waited on before the barrier that closed
+  // step u - 1's taps (or, across items, before the epilogue).
+  auto taps = [&]() {
+    PROBE(ta);
+    const int s = u % SI;
+    mbar_wait(&full_in[s], (u / SI) & 1);
+    PROBE(tw);
+    wg_depthwise<DOT, D>(p, in_sm + s * kIn, a_sm + (u % kWgASlots) * kWgABytes);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_in[s]);
+    fence_proxy_async();
+    PROBE(tc);
+    named_sync(1, kWgConsumers);
+    PROBE(tb);
+#ifdef SEPCONV_PROFILE
+    taps_cycles += tb - ta;
+    in_cycles += tw - ta;
+    sync_cycles += tb - tc;
+#endif
+    ++u;
+  };
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  for (int it = blockIdx.x, t = 0; it < p.items; it += gridDim.x, ++t) {
+    int n0, r0, c0, img;
+    coords(it, n0, r0, c0, img);
+    taps();
+    for (int k = 0; k < steps; ++k, ++w) {
+      const int s = w % S;
+      PROBE(wa);
+      mbar_wait(&full_w[s], (w / S) & 1);
+      PROBE(wb);
+#ifdef SEPCONV_PROFILE
+      wait_cycles += wb - wa;
+#endif
+      const char* a = a_sm + ((u - 1) % kWgASlots) * kWgABytes;  // step k's taps: the last taken
+      const char* b = ring + s * kStage + wg * N * kWgRow;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // 32 bytes of K a product; the item's first sets d
+        const uint64_t da = sw128_desc(a + 32 * kk, 16, 1024);
+        const uint64_t db = sw128_desc(b + 32 * kk, 16, 1024);
+        const int keep = k > 0 || kk > 0;
+#ifndef SEPCONV_WG_NO_MMA
+        if constexpr (DOT == kDotS8) {
+          WgmmaS8<N>::ss(acc, da, db, keep);
+        } else {
+          Wgmma<N>::template ss<0>(acc, da, db, keep);
+        }
+#endif
+      }
+      wgmma_commit();
+      if (k > 0) {
+        // this warpgroup's step k - 1 products are done: its ring stage is
+        // free once all 8 consumer warps arrive; step k's products run on the
+        // tensor cores while step k + 1's taps run here (into step k - 2's A
+        // slot: the other warpgroup may still read step k - 1's)
+        PROBE(wc);
+        wgmma_wait<1>();
+        PROBE(wd);
+#ifdef SEPCONV_PROFILE
+        wait_cycles += wd - wc;
+#endif
+        if (lane == 0) mbar_arrive(&empty_w[(w - 1) % S]);
+      }
+      if (k + 1 < steps) taps();
+    }
+    PROBE(we);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty_w[(w - 1) % S]);
+    // both warpgroups' products are done: the A slots are free for the staging
+    named_sync(1, kWgConsumers);
+    PROBE(t1);
+
+    // Epilogue: the out affine, bf16, a box of [64 pixels][64 channels] at a
+    // time through the warpgroup's A slot (128-byte swizzled: conflict-free
+    // stores of the fragment), then out in 16-byte vectors, a pixel's 128
+    // bytes by 8 neighbouring lanes, masked at the image's and Co's ends.
+    const int o = t & 1;
+    mbar_wait(&full_osb[o], (t >> 1) & 1);
+    const float* scale = osb_sm + o * kOsb + wg * 2 * N;  // [2][N]: scale, bias; zeros past cop
+    char* box = a_sm + wg * kWgABytes;
+    const int col0 = n0 + wg * N;
+#pragma unroll
+    for (int bx = 0; bx < N / 64; ++bx) {
+      if (bx > 0) named_sync(2 + wg, 128);  // the box before has been read out
+#pragma unroll
+      for (int j = 8 * bx; j < 8 * bx + 8; ++j) {
+        const float2 sc = *reinterpret_cast<const float2*>(scale + 8 * j + 2 * q);
+        const float2 bi = *reinterpret_cast<const float2*>(scale + N + 8 * j + 2 * q);
+        // multiply and add rounded separately, as the plain version does
+        const float v00 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j]), sc.x), bi.x);
+        const float v01 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 1]), sc.y), bi.y);
+        const float v10 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 2]), sc.x), bi.x);
+        const float v11 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 3]), sc.y), bi.y);
+        const int off = (((j % 8) ^ g) << 4) + 4 * q;  // rows row and row + 8 share row % 8 = g
+        *reinterpret_cast<uint32_t*>(box + row * kWgRow + off) = bf16x2(v00, v01);
+        *reinterpret_cast<uint32_t*>(box + (row + 8) * kWgRow + off) = bf16x2(v10, v11);
+      }
+      named_sync(2 + wg, 128);
+      const int ch = col0 + 64 * bx;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = i * 16 + wt / 8, c8 = wt % 8;  // pixel, 16-byte chunk
+        const int r = r0 + m / kWgTW, c = c0 + m % kWgTW;
+        const uint4 v = *reinterpret_cast<const uint4*>(box + m * kWgRow + (((c8 ^ m) & 7) << 4));
+        if (r < p.h && c < p.w && ch + 8 * c8 < p.co)  // co % 8 == 0: a chunk is in or out
+          *reinterpret_cast<uint4*>(out + ((size_t(img) * p.h + r) * p.w + c) * p.co + ch +
+                                    8 * c8) = v;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_osb[o]);
+    // the staging is read out before the next item's taps write the A slots
+    named_sync(1, kWgConsumers);
+    PROBE(t2);
+#ifdef SEPCONV_PROFILE
+    wait_cycles += t1 - we;
+    epi_cycles += t2 - t1;
+    ++n_items;
+#endif
+  }
+  PROBE(t3);
+#ifdef SEPCONV_PROFILE
+  PROBE_WG_ADD(0, 0, taps_cycles);
+  PROBE_WG_ADD(1, 0, wait_cycles);
+  PROBE_WG_ADD(2, 0, epi_cycles);
+  PROBE_WG_ADD(3, t0, t3);
+  PROBE_WG_ADD(4, 0, n_items);
+  PROBE_WG_ADD(5, 0, in_cycles);
+  PROBE_WG_ADD(6, 0, sync_cycles);
+#endif
+}
+
+// ------------------------------------------------------------------ host
+constexpr int kMaxSmem = 227 * 1024;  // 232,448 bytes a block
+
+enum KernelId { kRecompute = 0, kResident = 1, kWgmmaKernel = 2 };
+
+// The host's choice for a call (sepconv_plan reports it; ops/sepconv.py's
+// sepconv_plan mirrors it).
+struct Plan {
+  int kernel;             // KernelId
+  int tile_h, tile_w;     // output pixels of a block (the wgmma kernel: of an item)
+  // the older kernels: blocks over Co, pixel tiles, images; the wgmma kernel:
+  // persistent blocks, at most one an SM, walking the items
+  int grid_x, grid_y, grid_z;
+  int co_split;           // blocks (items) a pixel tile's output channels take
+  int co_block;           // output channels a block (an item)
+  int n_wg;               // wgmma kernel: output channels a consumer warpgroup
+  int stages;             // wgmma kernel: weight-ring stages
+  int in_stages;          // wgmma kernel: input stages
+  int smem;               // dynamic shared memory, bytes
+};
+
+// The older kernels' routes: the resident kernel where the depthwise result of all
+// channels fits (tensor-core products), else the recompute kernel.
+template <typename T, int DOT>
+int old_plan(const Args& p, int sms, Plan& pl) {
+  const int tiles = p.tiles_x * ((p.ho + kTH - 1) / kTH);
+  if (tiles > 65535 || p.n > 65535) return -1;
+  const int co_tiles = p.cop / kNT;
+  pl = Plan{};
+  pl.tile_h = kTH;
+  pl.tile_w = kTW;
+  pl.grid_y = tiles;
+  pl.grid_z = p.n;
+  if constexpr (!(std::is_same<T, float>::value && DOT == kDotNative)) {
+    using R = Resident<T, DOT>;
+    size_t smem = R::a_bytes(p.cp) + R::stage_bytes(p.ih, p.iw);
+    if (p.skip == kSkipConv) smem += Smem<T, DOT>::kStash;
+    if (smem <= size_t(kMaxSmem) && p.c % (16 / sizeof(T)) == 0) {
+      // enough blocks to fill the card: split the Co tiles where pixel
+      // tiles alone are fewer than the SMs
+      int split = sms / (tiles * p.n);  // rounded down: a second wave costs a whole phase 1
+      if (split < 1) split = 1;
+      if (split > co_tiles) split = co_tiles;
+      const int per = (co_tiles + split - 1) / split;
+      pl.kernel = kResident;
+      pl.grid_x = pl.co_split = (co_tiles + per - 1) / per;
+      pl.co_block = per * kNT;
+      pl.smem = static_cast<int>(smem);
+      return 0;
+    }
+  }
+  size_t smem = Smem<T, DOT>::kA + Smem<T, DOT>::kB +
+                (size_t(p.ih) * p.iw * kKC * sizeof(T) + 15) / 16 * 16;
+  if (p.skip == kSkipConv) smem += Smem<T, DOT>::kStash;
+  if (smem > size_t(kMaxSmem)) return -2;  // the haloed tile does not fit: dilation too large
+  pl.kernel = kRecompute;
+  pl.grid_x = pl.co_split = co_tiles;
+  pl.co_block = kNT;
+  pl.smem = static_cast<int>(smem);
+  return 0;
+}
+
+// The wgmma kernel takes bf16 I/O at stride 1 without skip, dilation 1 or 2
+// (the flagship's fused layers), and C, Co multiples of 8 (16-byte TMA
+// strides), where two weight stages fit; everything else keeps the older kernels'
+// routes. 192 output channels a warpgroup where they tile the padded Co by
+// twos (768 = 2 x 384), else 128; one persistent block an SM.
+int make_plan(const Args& p, int bf16, int s8, int sms, Plan& pl) {
+  if (bf16 && p.stride == 1 && p.skip == kSkipNone && (p.d == 1 || p.d == 2) &&
+      p.c % 8 == 0 && p.co % 8 == 0) {
+    const int dot = s8 ? kDotS8 : kDotNative;
+    const int n_wg = p.cop % 384 == 0 ? 192 : 128;
+    // two input stages, as many weight stages as fit (up to 4), then a third
+    // input stage where it fits
+    const int in_b = wg_in_bytes(p.d, dot), stage_b = wg_stage_bytes(n_wg);
+    const int fixed = wg_fixed_bytes(n_wg) + 2 * in_b;
+    int stages = (kMaxSmem - fixed) / stage_b;
+    if (stages > kWgMaxStages) stages = kWgMaxStages;
+    const int in_stages = kMaxSmem - fixed - stages * stage_b >= in_b ? 3 : 2;
+    const long long co_blocks = (p.cop + 2 * n_wg - 1) / (2 * n_wg);
+    const long long items = co_blocks * ((p.h + kWgTH - 1) / kWgTH) *
+                            ((p.w + kWgTW - 1) / kWgTW) * p.n;
+    if (stages >= 2 && items < (1ll << 31)) {
+      pl = Plan{kWgmmaKernel, kWgTH, kWgTW, static_cast<int>(items < sms ? items : sms), 1, 1,
+                static_cast<int>(co_blocks), 2 * n_wg, n_wg, stages, in_stages,
+                fixed + stages * stage_b + (in_stages - 2) * in_b};
+      return 0;
+    }
+  }
+  if (bf16) return s8 ? old_plan<__nv_bfloat16, kDotS8>(p, sms, pl)
+                      : old_plan<__nv_bfloat16, kDotNative>(p, sms, pl);
+  return s8 ? old_plan<float, kDotS8>(p, sms, pl) : old_plan<float, kDotNative>(p, sms, pl);
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
 template <typename K>
 int launch_kernel(K kernel, const Args& p, dim3 grid, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -745,75 +1289,90 @@ int launch_kernel(K kernel, const Args& p, dim3 grid, size_t smem, cudaStream_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr size_t kMaxSmem = 227 * 1024;
-
 template <typename T, int DOT>
-int launch(Args p, cudaStream_t stream) {
-  const int tiles = p.tiles_x * ((p.ho + kTH - 1) / kTH);
-  if (tiles > 65535 || p.n > 65535) return -1;
-  const int co_tiles = p.cop / kNT;
+int launch_old(Args p, const Plan& pl, cudaStream_t stream) {
+  const dim3 grid(pl.grid_x, pl.grid_y, pl.grid_z);
   if constexpr (!(std::is_same<T, float>::value && DOT == kDotNative)) {
-    using R = Resident<T, DOT>;
-    size_t smem = R::a_bytes(p.cp) + R::stage_bytes(p.ih, p.iw);
-    if (p.skip == kSkipConv) smem += Smem<T, DOT>::kStash;
-    if (smem <= kMaxSmem && p.c % (16 / sizeof(T)) == 0) {
-      // enough blocks to fill the card: split the Co tiles where pixel
-      // tiles alone are fewer than the SMs
-      static int sms = 0;
-      if (sms == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-          sms = 132;
-      }
-      int split = sms / (tiles * p.n);  // rounded down: a second wave costs a whole phase 1
-      if (split < 1) split = 1;
-      if (split > co_tiles) split = co_tiles;
-      p.co_tiles_per_block = (co_tiles + split - 1) / split;
-      split = (co_tiles + p.co_tiles_per_block - 1) / p.co_tiles_per_block;
-      return launch_kernel(sepconv_resident_kernel<T, DOT>, p, dim3(split, tiles, p.n), smem,
-                           stream);
+    if (pl.kernel == kResident) {
+      p.co_tiles_per_block = pl.co_block / kNT;
+      return launch_kernel(sepconv_resident_kernel<T, DOT>, p, grid, pl.smem, stream);
     }
   }
-  size_t smem = Smem<T, DOT>::kA + Smem<T, DOT>::kB +
-                (size_t(p.ih) * p.iw * kKC * sizeof(T) + 15) / 16 * 16;
-  if (p.skip == kSkipConv) smem += Smem<T, DOT>::kStash;
-  if (smem > kMaxSmem) return -2;  // the haloed tile does not fit: dilation too large
-  return launch_kernel(sepconv_kernel<T, DOT>, p, dim3(co_tiles, tiles, p.n), smem, stream);
+  return launch_kernel(sepconv_kernel<T, DOT>, p, grid, pl.smem, stream);
 }
 
-}  // namespace
-
-extern "C" {
-
-#ifdef SEPCONV_PROFILE
-// reset != 0: zero the cycle counts; else copy the four counts to ``out``.
-int sepconv_probe(unsigned long long* out, int reset) {
-  const unsigned long long zero[4] = {0, 0, 0, 0};
-  return static_cast<int>(reset ? cudaMemcpyToSymbol(g_cycles, zero, sizeof(zero))
-                                : cudaMemcpyFromSymbol(out, g_cycles, sizeof(zero)));
+// A tensor map of a contiguous array, boxes of `box`, zeros past every edge.
+bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+            const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+            CUtensorMapSwizzle swizzle) {
+  auto fn = encode_fn();
+  if (!fn) return false;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
-#endif
 
-// Padded sizes the packed buffers must have: channels in (c, cin) to a
-// multiple of 32, channels out to a multiple of 128.
-int sepconv_pad_in(int c) { return (c + kKC - 1) / kKC * kKC; }
-int sepconv_pad_out(int co) { return (co + kNT - 1) / kNT * kNT; }
+template <int DOT, int N, int D>
+int launch_wgmma(const Args& a, const Plan& pl, cudaStream_t stream) {
+  constexpr int KC = wg_kc(DOT);
+  const int tiles_x = (a.w + kWgTW - 1) / kWgTW, tiles = tiles_x * ((a.h + kWgTH - 1) / kWgTH);
+  const WgArgs p{a.co, a.relu, tiles_x, tiles, pl.co_split, pl.co_split * tiles * a.n,
+                 (a.c + KC - 1) / KC, pl.stages, pl.in_stages, a.h, a.w, a.out};
+  CUtensorMap map_x{}, map_dw{}, map_w{}, map_osb{};
+  const cuuint64_t n = a.n, h = a.h, w = a.w, c = a.c;
+  const cuuint64_t es = DOT == kDotS8 ? 1 : 2;  // bytes of a packed weight
+  // x (n, h, w, c): boxes of KC channels x (8 + 2d) x (8 + 2d) pixels
+  const cuuint64_t x_dims[4] = {c, w, h, n}, x_strides[3] = {c * 2, w * c * 2, h * w * c * 2};
+  const cuuint32_t x_box[4] = {cuuint32_t(KC), cuuint32_t(kWgTW + 2 * a.d),
+                               cuuint32_t(kWgTH + 2 * a.d), 1};
+  // packed weights (cop, cp): boxes of N rows x 128 bytes, swizzled for wgmma
+  const cuuint64_t w_dims[3] = {cuuint64_t(a.cp), cuuint64_t(a.cop), 1};
+  const cuuint64_t w_strides[2] = {cuuint64_t(a.cp) * es, cuuint64_t(a.cp) * a.cop * es};
+  const cuuint32_t w_box[3] = {cuuint32_t(KC), cuuint32_t(N), 1};
+  // depthwise weights (11, cp) and out affine (2, cop), f32: boxes of a step's
+  // KC channels, and of N channels
+  const cuuint64_t dw_dims[3] = {cuuint64_t(a.cp), 11, 1}, osb_dims[3] = {cuuint64_t(a.cop), 2, 1};
+  const cuuint64_t dw_strides[2] = {cuuint64_t(a.cp) * 4, cuuint64_t(a.cp) * 44};
+  const cuuint64_t osb_strides[2] = {cuuint64_t(a.cop) * 4, cuuint64_t(a.cop) * 8};
+  const cuuint32_t dw_box[3] = {cuuint32_t(KC), 11, 1}, osb_box[3] = {cuuint32_t(N), 2, 1};
+  if (!encode(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.x, x_dims, x_strides, x_box,
+              CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode(&map_dw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, a.dwp, dw_dims, dw_strides, dw_box,
+              CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode(&map_osb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, a.osb, osb_dims, osb_strides,
+              osb_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode(&map_w, DOT == kDotS8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+              3, a.pw, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return -3;
+  auto kernel = sepconv_wgmma_kernel<DOT, N, D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(pl.grid_x, pl.grid_y, pl.grid_z), kWgThreads, pl.smem, stream>>>(
+      map_x, map_dw, map_w, map_osb, p);
+  return static_cast<int>(cudaGetLastError());
+}
 
-// x (n,h,w,c) -> out (n,ho,wo,co) with ho = (h-1)/stride+1, wo likewise.
-// skip: 0 none, 1 conv (xin (n,h,w,cin), skw, ska), 2 sum (xin like out).
-// bf16 != 0: bfloat16 I/O, else f32; int8_dot != 0: pw is s8 and the depthwise
-// result is rounded to s8. Returns the CUDA error of the launch, -1 for
-// arguments the kernel does not take, -2 when the haloed tile exceeds shared
-// memory.
-int sepconv_launch(const void* x, const void* xin, void* out, const void* dwp,
-                   const void* pw, const void* osb, const void* skw, const void* ska,
-                   int n, int h, int w, int c, int co, int cin, int d, int stride,
-                   int relu, int skip, int bf16, int int8_dot, void* stream) {
+template <int DOT, int N>
+int launch_wgmma_d(const Args& p, const Plan& pl, cudaStream_t s) {
+  return p.d == 1 ? launch_wgmma<DOT, N, 1>(p, pl, s) : launch_wgmma<DOT, N, 2>(p, pl, s);
+}
+int launch_wgmma_route(const Args& p, const Plan& pl, int s8, cudaStream_t s) {
+  if (s8) return pl.n_wg == 192 ? launch_wgmma_d<kDotS8, 192>(p, pl, s)
+                                : launch_wgmma_d<kDotS8, 128>(p, pl, s);
+  return pl.n_wg == 192 ? launch_wgmma_d<kDotNative, 192>(p, pl, s)
+                        : launch_wgmma_d<kDotNative, 128>(p, pl, s);
+}
+
+// The arguments of a call, checked; -1 for those no kernel takes.
+int make_args(Args& p, const void* x, const void* xin, void* out, const void* dwp,
+              const void* pw, const void* osb, const void* skw, const void* ska, int n, int h,
+              int w, int c, int co, int cin, int d, int stride, int relu, int skip) {
   if (n < 1 || h < 1 || w < 1 || c < 1 || co < 1 || d < 1 || (stride != 1 && stride != 2) ||
       skip < 0 || skip > 2 || (skip == kSkipConv && cin < 1) || (skip == kSkipSum && stride != 1))
     return -1;
-  Args p;
   p.x = x; p.xin = xin; p.out = out;
   p.dwp = static_cast<const float*>(dwp);
   p.pw = pw;
@@ -823,16 +1382,83 @@ int sepconv_launch(const void* x, const void* xin, void* out, const void* dwp,
   p.n = n; p.h = h; p.w = w; p.c = c; p.co = co; p.cin = cin;
   p.ho = (h - 1) / stride + 1; p.wo = (w - 1) / stride + 1;
   p.d = d; p.stride = stride; p.relu = relu; p.skip = skip;
-  p.cp = sepconv_pad_in(c); p.cop = sepconv_pad_out(co);
-  p.cinp = skip == kSkipConv ? sepconv_pad_in(cin) : 0;
+  p.cp = (c + kKC - 1) / kKC * kKC; p.cop = (co + kNT - 1) / kNT * kNT;
+  p.cinp = skip == kSkipConv ? (cin + kKC - 1) / kKC * kKC : 0;
   p.tiles_x = (p.wo + kTW - 1) / kTW;
   p.ih = (kTH - 1) * stride + 1 + 2 * d;
   p.iw = (kTW - 1) * stride + 1 + 2 * d;
   p.co_tiles_per_block = 1;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+#ifdef SEPCONV_PROFILE
+// reset != 0: zero the cycle counts; else copy them to ``out``: the resident
+// kernel's four (taps, phase 2, of which epilogue, blocks), then the wgmma
+// kernel's seven (taps, waits on products, epilogue, all, blocks, the taps'
+// waits for their input, the taps' closing barrier).
+int sepconv_probe(unsigned long long* out, int reset) {
+  const unsigned long long zero[7] = {0, 0, 0, 0, 0, 0, 0};
+  if (reset) {
+    cudaError_t err = cudaMemcpyToSymbol(g_cycles, zero, sizeof(g_cycles));
+    if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_cycles_wg, zero, sizeof(g_cycles_wg));
+    return static_cast<int>(err);
+  }
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_cycles, sizeof(g_cycles));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out + 4, g_cycles_wg, sizeof(g_cycles_wg));
+  return static_cast<int>(err);
+}
+#endif
+
+// Padded sizes the packed buffers must have: channels in (c, cin) to a
+// multiple of 32, channels out to a multiple of 128.
+int sepconv_pad_in(int c) { return (c + kKC - 1) / kKC * kKC; }
+int sepconv_pad_out(int co) { return (co + kNT - 1) / kNT * kNT; }
+
+// The host's choice for a call of these shapes (sms <= 0: the current
+// device's SM count): out[0] kernel (0 recompute, 1 resident, 2 wgmma),
+// [1] [2] tile rows and columns, [3] [4] [5] grid, [6] Co split, [7] output
+// channels a block (an item), [8] wgmma N a warpgroup, [9] weight stages,
+// [10] input stages, [11] shared memory bytes. Returns what sepconv_launch
+// would return before launching: 0, -1 or -2.
+int sepconv_plan(int n, int h, int w, int c, int co, int cin, int d, int stride, int relu,
+                 int skip, int bf16, int int8_dot, int sms, int* out) {
+  Args p;
+  int rc = make_args(p, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     n, h, w, c, co, cin, d, stride, relu, skip);
+  Plan pl{};
+  if (rc == 0) rc = make_plan(p, bf16, int8_dot, sms > 0 ? sms : sm_count(), pl);
+  const int v[12] = {pl.kernel,   pl.tile_h,   pl.tile_w, pl.grid_x, pl.grid_y,    pl.grid_z,
+                     pl.co_split, pl.co_block, pl.n_wg,   pl.stages, pl.in_stages, pl.smem};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  return rc;
+}
+
+// x (n,h,w,c) -> out (n,ho,wo,co) with ho = (h-1)/stride+1, wo likewise.
+// skip: 0 none, 1 conv (xin (n,h,w,cin), skw, ska), 2 sum (xin like out).
+// bf16 != 0: bfloat16 I/O, else f32; int8_dot != 0: pw is s8 and the depthwise
+// result is rounded to s8. Returns the CUDA error of the launch, -1 for
+// arguments the kernel does not take, -2 when the haloed tile exceeds shared
+// memory, -3 when a TMA tensor map cannot be made.
+int sepconv_launch(const void* x, const void* xin, void* out, const void* dwp,
+                   const void* pw, const void* osb, const void* skw, const void* ska,
+                   int n, int h, int w, int c, int co, int cin, int d, int stride,
+                   int relu, int skip, int bf16, int int8_dot, void* stream) {
+  Args p;
+  int rc = make_args(p, x, xin, out, dwp, pw, osb, skw, ska, n, h, w, c, co, cin, d, stride,
+                     relu, skip);
+  if (rc != 0) return rc;
+  Plan pl;
+  rc = make_plan(p, bf16, int8_dot, sm_count(), pl);
+  if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return int8_dot ? launch<__nv_bfloat16, kDotS8>(p, s)
-                            : launch<__nv_bfloat16, kDotNative>(p, s);
-  return int8_dot ? launch<float, kDotS8>(p, s) : launch<float, kDotNative>(p, s);
+  if (pl.kernel == kWgmmaKernel) return launch_wgmma_route(p, pl, int8_dot, s);
+  if (bf16) return int8_dot ? launch_old<__nv_bfloat16, kDotS8>(p, pl, s)
+                            : launch_old<__nv_bfloat16, kDotNative>(p, pl, s);
+  return int8_dot ? launch_old<float, kDotS8>(p, pl, s) : launch_old<float, kDotNative>(p, pl, s);
 }
 
 }  // extern "C"

@@ -24,13 +24,15 @@ carries the weight scales (``fold_sepconv_int8``).
 Bound on one H100 for a middle-flow layer of Xception-65 at output
 stride 8, (1,128,256,728) -> 728: 95.4 MB moved and 34.7 GFLOP, so
 0.0351 ms in bf16 (operations) and 0.0285 ms with ``int8_dot`` (bytes).
-Where the depthwise result of a block's 8 x 16 pixels fits in shared
-memory (bf16 and int8 products), it is computed once and the tiles of
-128 output channels run against it; f32 products, and larger shapes,
-recompute it per tile. The design and what keeps it from the bound
-(the taps' instruction count on the CUDA cores, shared-memory bandwidth
-under ``mma.sync``, one block of 8 warps per SM) are described in the
-source.
+bf16 I/O at stride 1 without skip (every v2 and v3 layer of the
+flagship's paths) takes the ``wgmma`` kernel: input and weights by TMA,
+the taps of a K step on the CUDA cores while the step before's products
+run on the tensor cores, persistent blocks. The block ends (skip),
+stride 2 and f32 I/O keep the first version's kernels: the depthwise
+result of a block's 8 x 16 pixels resident in shared memory where it
+fits, else recomputed per tile of 128 output channels. ``sepconv_plan``
+says which kernel a call takes, and the source describes each design and
+what keeps it from the bound.
 
 ``sepconv_vmem_ok``, ``v3_vmem_ok`` and ``v3_skip_vmem_ok`` are the JAX
 package's admission formulas, kept as routing gates so that the port
@@ -70,6 +72,7 @@ __all__ = [
     "fused_sepconv_infer_v3_skip",
     "fused_sepconv_infer_v3_skip_plain",
     "pack_sepconv",
+    "sepconv_plan",
     "sepconv_vmem_ok",
     "v3_skip_vmem_ok",
     "v3_vmem_ok",
@@ -77,6 +80,9 @@ __all__ = [
 
 _PAD_IN, _PAD_OUT = 32, 128  # csrc/sepconv.cu: channel chunk, output-channel tile
 _SKIP_CODES = {None: 0, "conv": 1, "sum": 2}
+H100_SMS = 132
+MAX_SMEM = 227 * 1024  # dynamic shared memory a block may take on an H100
+KERNELS = ("recompute", "resident", "wgmma")  # csrc/sepconv.cu's KernelId, in order
 
 
 def fold_sepconv_int8(mid_scale, mid_bias, pw_kernel, out_scale, k_sigma: float = 6.0):
@@ -132,6 +138,115 @@ def v3_skip_vmem_ok(h: int, w: int, c: int, cin: int, co: int, d: int,
     out = 2 * t_out * w * co * 2 + t_out * w * co * 4
     wts = c * co * 2 + cin * co * 2 + 9 * c * 4 + 4 * (c + co) * 4
     return (center + halos + xin + xt + acc + out + wts) < budget
+
+
+# ------------------------------------------------------------- the plan
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _old_plan(n, h, w, c, co, d, stride, skip, itemsize, int8_dot, sms):
+    """The older kernels' routes (``old_plan`` in the source): the resident kernel
+    where the depthwise result of every channel fits in shared memory
+    (tensor-core products), else the recompute kernel."""
+    th, tw, kc, nt = 8, 16, 32, 128
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    ih, iw = (th - 1) * stride + 1 + 2 * d, (tw - 1) * stride + 1 + 2 * d
+    cp, cop = _round_up(c, kc), _round_up(co, nt)
+    tiles = _ceil(wo, tw) * _ceil(ho, th)
+    if tiles > 65535 or n > 65535:
+        return None, -1
+    co_tiles = cop // nt
+    a_item = 1 if int8_dot else itemsize  # the main product's operand
+    # Tile<T>: A [128][ld], B [128][ld] (f32: B [32][128]); ld 40 | 48 | 36
+    tile_ab = {2: (128 * 40 * 2, 128 * 40 * 2), 1: (128 * 48, 128 * 48),
+               4: (128 * 36 * 4, 32 * 128 * 4)}
+    stash = 64 * 256 * 4 if skip == "conv" else 0
+    in_tile = _ceil(ih * iw * kc * itemsize, 16) * 16
+    base = dict(tile=(th, tw), tiles=tiles, n=n)
+    if not (itemsize == 4 and not int8_dot):
+        step = 4 if a_item == 1 else 2
+        stage = max(2 * in_tile, 2 * step * tile_ab[a_item][1], 64 * 136 * 4,
+                    sum(tile_ab[itemsize]))
+        smem = 128 * (cp + 16 // a_item) * a_item + stage + stash
+        if smem <= MAX_SMEM and c % (16 // itemsize) == 0:
+            split = min(max(sms // (tiles * n), 1), co_tiles)
+            per = _ceil(co_tiles, split)
+            return dict(base, kernel="resident", co_split=_ceil(co_tiles, per),
+                        co_block=per * nt, smem=smem), 0
+    smem = (max(tile_ab[a_item][0], tile_ab[itemsize][0])
+            + max(tile_ab[a_item][1], tile_ab[itemsize][1]) + in_tile + stash)
+    if smem > MAX_SMEM:
+        return None, -2
+    return dict(base, kernel="recompute", co_split=co_tiles, co_block=nt, smem=smem), 0
+
+
+def sepconv_plan(n: int, h: int, w: int, c: int, co: int, d: int, stride: int = 1,
+                 skip: Optional[str] = None, dtype=torch.bfloat16, int8_dot: bool = False,
+                 sms: int = H100_SMS) -> dict:
+    """The kernel ``sepconv_launch`` picks for these shapes, the mirror of
+    ``sepconv_plan`` in ``csrc/sepconv.cu`` (``chip_smoke.py`` holds the two
+    equal on the card): ``kernel`` ("wgmma", "resident" or "recompute"),
+    ``tile`` (output rows, columns of a block, or of a wgmma item),
+    ``grid`` (the older kernels: blocks over Co, pixel tiles, images; the
+    wgmma kernel: persistent blocks, one an SM at most, walking the items
+    (Co block, tile, image)), ``co_split`` (blocks or items a tile's output
+    channels take), ``co_block`` (output channels of each), ``n_wg`` (the
+    wgmma kernel's N a warpgroup), ``stages`` and ``in_stages`` (its
+    weight-ring and input stages) and ``smem`` (dynamic shared memory,
+    bytes). Raises ValueError where the
+    source returns -1 or -2.
+
+    The wgmma kernel takes bf16 I/O at stride 1 without skip, dilation
+    1 or 2 (the flagship's fused layers), and C, Co multiples of 8, where
+    two weight stages fit; everything else keeps the older kernels' routes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unsupported dtype {dtype}")
+    if (min(n, h, w, c, co, d) < 1 or stride not in (1, 2) or skip not in _SKIP_CODES
+            or (skip == "sum" and stride != 1)):
+        raise ValueError("sepconv_plan: arguments no kernel takes")
+    bf16 = dtype == torch.bfloat16
+    cop = _round_up(co, _PAD_OUT)
+    if bf16 and stride == 1 and skip is None and d in (1, 2) and c % 8 == 0 and co % 8 == 0:
+        n_wg = 192 if cop % 384 == 0 else 128
+        kc = 128 if int8_dot else 64
+        # alignment slack, three A slots (the epilogue's staging too), two
+        # slots of the out affine, the barriers, two input stages (the haloed
+        # box and the step's [11][kc] f32 depthwise weights); then as many
+        # weight stages as fit (up to 4), and a third input stage if it fits
+        in_bytes, stage = (8 + 2 * d) ** 2 * kc * 2 + 11 * kc * 4, 2 * n_wg * 128
+        fixed = 1024 + 3 * 64 * 128 + 2 * 16 * n_wg + 8 * (2 * 3 + 4 + 2 * 4) + 2 * in_bytes
+        stages = min((MAX_SMEM - fixed) // stage, 4)
+        in_stages = 3 if MAX_SMEM - fixed - stages * stage >= in_bytes else 2
+        co_split = _ceil(cop, 2 * n_wg)
+        items = co_split * _ceil(h, 8) * _ceil(w, 8) * n
+        if stages >= 2 and items < 2 ** 31:
+            return dict(kernel="wgmma", tile=(8, 8), grid=(min(items, sms), 1, 1),
+                        co_split=co_split, co_block=2 * n_wg, n_wg=n_wg, stages=stages,
+                        in_stages=in_stages,
+                        smem=fixed + stages * stage + (in_stages - 2) * in_bytes)
+    got, rc = _old_plan(n, h, w, c, co, d, stride, skip, 2 if bf16 else 4, int8_dot, sms)
+    if got is None:
+        raise ValueError(f"sepconv_plan: no kernel takes these shapes (source's rc {rc})")
+    return dict(kernel=got["kernel"], tile=got["tile"],
+                grid=(got["co_split"], got["tiles"], got["n"]), co_split=got["co_split"],
+                co_block=got["co_block"], n_wg=0, stages=0, in_stages=0, smem=got["smem"])
+
+
+def kernel_plan(n, h, w, c, co, d, stride=1, skip=None, dtype=torch.bfloat16, int8_dot=False,
+                cin=0, sms=0) -> dict:
+    """``sepconv_plan`` as the compiled source reports it (needs ``nvcc``),
+    in the mirror's form."""
+    out = (ctypes.c_int * 12)()
+    rc = _lib().sepconv_plan(n, h, w, c, co, cin if skip == "conv" else 0, d, stride, 1,
+                             _SKIP_CODES[skip], int(dtype == torch.bfloat16), int(int8_dot),
+                             sms, out)
+    if rc != 0:
+        raise ValueError(f"sepconv_plan: rc {rc}")
+    v = list(out)
+    return dict(kernel=KERNELS[v[0]], tile=(v[1], v[2]), grid=(v[3], v[4], v[5]),
+                co_split=v[6], co_block=v[7], n_wg=v[8], stages=v[9], in_stages=v[10],
+                smem=v[11])
 
 
 # ------------------------------------------------------------ plain versions
@@ -302,6 +417,8 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sepconv_launch.argtypes = [p] * 8 + [i] * 12 + [p]
     lib.sepconv_launch.restype = i
+    lib.sepconv_plan.argtypes = [i] * 13 + [p]
+    lib.sepconv_plan.restype = i
     for fn in (lib.sepconv_pad_in, lib.sepconv_pad_out):
         fn.argtypes = [i]
         fn.restype = i
@@ -358,6 +475,8 @@ def _launch(x, packed: PackedSepconv, dilation, pre_relu, stride=1, skip=None, x
     if rc == -2:
         raise ValueError(f"sepconv kernel: dilation {dilation} at stride {stride} needs more "
                          "shared memory for its haloed tile than the card has")
+    if rc == -3:
+        raise RuntimeError("sepconv kernel: a TMA tensor map could not be made")
     if rc != 0:
         raise RuntimeError(f"sepconv_launch: error {rc}")
     return out
