@@ -29,7 +29,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    microseconds a call (``host_us``); before it, ``csrc/sepconv.cu``'s
    ptxas report and SASS (``check_sepconv_build``) and its plans against
    ``ops/sepconv.py::sepconv_plan`` (``check_sepconv_plans``), and after
-   it both main cases (v3, v2) must have taken ``sepconv_wgmma_kernel``;
+   it every bf16 stride-1 case (the v3 and v2 main cases, the sum-skip and
+   block3's conv-skip block ends) must have taken ``sepconv_wgmma_kernel``;
    the flash-attention forward
    (``ops/attention.py``) at DANet's and OCNet's shapes (P = 32768, and
    the pyramid's N=4/P=8192 and N=9/P=3698), their train shapes (N=16,
@@ -114,8 +115,8 @@ its last line ``{"ok": true, "device": {...}}``.
 clock64 probe and prints, for each main sepconv case in bf16, the share
 of the cycles that the taps, the products (for the wgmma kernel: the
 waits on them and on the weights) and the epilogue take, for the kernel
-the case takes (the wgmma kernel, or the resident kernel at the block
-end).
+the case takes (each main case takes the wgmma kernel; the resident
+kernel's shares are printed for a case that takes it).
 ``--sepconv`` neither: the rehearsal after an edit of
 ``csrc/sepconv.cu``. It builds that source alone, prints ptxas's
 registers and spills of each kernel and the wgmma kernel's SASS counts,
@@ -124,8 +125,8 @@ warning (C7510-C7520) and where a specialisation lacks HGMMA/IGMMA or
 UTMALDG; holds ``sepconv_plan`` (the source's) to
 ``ops/sepconv.py::sepconv_plan`` at every ``SEPCONV_CASES`` case in both
 dtypes and at the flagship's fused layers (``FLAGSHIP_SEPCONV_LAYERS``),
-with every bf16 stride-1 main case on the wgmma kernel and the skip,
-stride-2 and f32 cases on the older kernels; runs phase 3's sepconv check (every
+with every bf16 stride-1 case (block ends included) on the wgmma kernel and
+the stride-2 and f32 cases on the older kernels; runs phase 3's sepconv check (every
 case, f32 and bf16, the bars unchanged); times the default route's own
 layer (``SeparableConv2d`` unfused: cuDNN's depthwise conv, the BN
 affines, the 1x1 conv) at the two main shapes; and with
@@ -134,7 +135,7 @@ C interface is the same) against this one at every case in both dtypes
 in turns (old, new, new, old), the old results held to the new at the
 case's bar. ``--sepconv-probe`` times the wgmma kernel's probe builds
 (``SEPCONV_BUILDS``: a phase left out, wrong results, times only) in
-turns at the bf16 stride-1 main cases.
+turns at the bf16 stride-1 main cases and block ends.
 ``--probe-dot`` neither: it times ``csrc/probe_dot.cu`` and its probe
 builds, each with a phase left out, at the probe's two shapes, and prints
 the median phase stamps of a traced launch.
@@ -462,7 +463,9 @@ def sepconv_inputs(torch, sepconv, case, dt, gen, dev):
 
 def check_sepconv_kernels(torch, sepconv, card, dev, gen):
     """Every case in f32 and bf16: the wrapper (which launches the
-    kernel) against the plain version, and their times."""
+    kernel) against the plain version, and their times. Returns {entry
+    point: {dtype: the main case's numbers, "cases": {what: {dtype:
+    numbers}}}}, each with the kernel the source picked."""
     results = {}
     for case in SEPCONV_CASES:
         wrapper = getattr(sepconv, case["fn"])
@@ -520,17 +523,18 @@ def check_sepconv_kernels(torch, sepconv, card, dev, gen):
                   f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             if not ok:
                 fail(f"{case['fn']} {dname} ({case['what']}) disagrees with its plain version")
+            n, h, w, c = x.shape
+            plan = sepconv.kernel_plan(n, h, w, c, case["co"], case["d"], case.get("stride", 1),
+                                       case.get("skip"), dt, case["int8"], case.get("cin", 0))
+            entry = dict(max_abs_err=max_err, ms=kernel_ms, ms_launch_hidden=hidden_ms,
+                         host_us=launch_us, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, shape=list(x.shape), what=case["what"],
+                         kernel=f"sepconv_{plan['kernel']}_kernel"
+                         if plan["kernel"] != "recompute" else "sepconv_kernel")
+            by_fn = results.setdefault(case["fn"], {})
+            by_fn.setdefault("cases", {}).setdefault(case["what"], {})[dname] = entry
             if case.get("main"):
-                n, h, w, c = x.shape
-                plan = sepconv.kernel_plan(n, h, w, c, case["co"], case["d"],
-                                           case.get("stride", 1), case.get("skip"), dt,
-                                           case["int8"], case.get("cin", 0))
-                results.setdefault(case["fn"], {})[dname] = dict(
-                    max_abs_err=max_err, ms=kernel_ms, ms_launch_hidden=hidden_ms,
-                    host_us=launch_us, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, shape=list(x.shape), what=case["what"],
-                    kernel=f"sepconv_{plan['kernel']}_kernel" if plan["kernel"] != "recompute"
-                    else "sepconv_kernel")
+                by_fn[dname] = entry
             del args, roles, ref, got, err, packed, x
     return results
 
@@ -565,18 +569,21 @@ def check_sepconv_plans(torch, sepconv, card):
     """The kernel, tiles, grid, Co split and shared memory as the source
     picks them (``sepconv_plan``) against the mirror
     ``ops/sepconv.py::sepconv_plan``, at every ``SEPCONV_CASES`` case in
-    f32 and bf16 and at the flagship's layers; every main case takes the
-    wgmma kernel in bf16, and skip, stride 2 and f32 keep the older kernels' routes."""
+    f32 and bf16 and at the flagship's layers; every bf16 stride-1 case,
+    block ends with their sum or conv skip included, takes the wgmma kernel,
+    and stride 2 and f32 keep the older kernels' routes."""
+    # the flagship's conv-skip layers: cin 128 (block2) or 256 (block3); the
+    # plan reads cin only through cin % 8
     shapes = [(c["fn"], c["what"], c["shape"], c["co"], c["d"], c.get("stride", 1),
-               c.get("skip"), c["int8"], dt, c.get("main", False))
+               c.get("skip"), c["int8"], dt, c.get("cin", 0))
               for c in SEPCONV_CASES for dt in (torch.float32, torch.bfloat16)]
     shapes += [(fn, f"flagship layer x{count}", shape, co, d, stride, skip, int8,
-                torch.bfloat16, False)
+                torch.bfloat16, 128 if skip == "conv" else 0)
                for fn, shape, co, d, stride, skip, int8, count in FLAGSHIP_SEPCONV_LAYERS]
-    for fn, what, shape, co, d, stride, skip, int8, dt, main in shapes:
+    for fn, what, shape, co, d, stride, skip, int8, dt, cin in shapes:
         n, h, w, c = shape
-        kw = dict(stride=stride, skip=skip, dtype=dt, int8_dot=int8)
-        src = sepconv.kernel_plan(n, h, w, c, co, d, cin=128, **kw)
+        kw = dict(stride=stride, skip=skip, dtype=dt, int8_dot=int8, cin=cin)
+        src = sepconv.kernel_plan(n, h, w, c, co, d, **kw)
         mirror = sepconv.sepconv_plan(n, h, w, c, co, d, sms=torch.cuda.get_device_properties(
             0).multi_processor_count, **kw)
         dname = dtype_name(dt)
@@ -586,11 +593,22 @@ def check_sepconv_plans(torch, sepconv, card):
             fail(f"sepconv_plan differs from the source's for {fn} {dname} {what}")
         if src["smem"] > 232448:
             fail(f"sepconv_plan: {src['smem']} bytes of shared memory for {fn} {what}")
-        wgmma = src["kernel"] == "wgmma"
-        if main and dt == torch.bfloat16 and skip is None and not wgmma:
-            fail(f"the main case {fn} {what} does not take the wgmma kernel in bf16")
-        if wgmma and (skip is not None or stride != 1 or dt != torch.bfloat16):
-            fail(f"{fn} {dname} {what}: skip, stride 2 and f32 keep the older kernels' routes")
+        if (src["kernel"] == "wgmma") != (dt == torch.bfloat16 and stride == 1):
+            fail(f"{fn} {dname} {what} takes {src['kernel']}: bf16 stride-1 calls take the "
+                 "wgmma kernel, stride 2 and f32 the older kernels")
+
+
+def check_sepconv_wgmma_cases(results):
+    """Every bf16 stride-1 case of ``SEPCONV_CASES`` ran on
+    ``sepconv_wgmma_kernel`` (the v3 and v2 main cases, the middle-flow
+    sum-skip and block3's conv-skip block ends among them); ``results`` as
+    ``check_sepconv_kernels`` returns them."""
+    for case in SEPCONV_CASES:
+        if case.get("stride", 1) != 1:
+            continue
+        got = results[case["fn"]]["cases"][case["what"]]["bfloat16"]["kernel"]
+        if got != "sepconv_wgmma_kernel":
+            fail(f"{case['fn']} bf16 {case['what']} does not take sepconv_wgmma_kernel: {got}")
 
 
 def baseline_sepconv_lib(path):
@@ -681,6 +699,11 @@ def compare_sepconv(torch, sepconv, card, dev, gen, path):
     return results
 
 
+# sepconv_wgmma_kernel<DOT, N, D, SKIP>: s8 or bf16 products, N 192 or 128,
+# dilation 1 or 2, no skip, the conv skip or the sum skip
+SEPCONV_WGMMA_SPECS = 2 * 2 * 2 * 3
+
+
 def check_sepconv_build(card):
     """ptxas's report of ``csrc/sepconv.cu`` (registers and spills of each
     kernel, its warnings) and the wgmma kernel's SASS: each specialisation
@@ -697,10 +720,10 @@ def check_sepconv_build(card):
         fail("ptxas serialises wgmma in csrc/sepconv.cu:\n" + "\n".join(serial))
     spills = ptxas_spills("sepconv", r"sepconv_wgmma_kernel")
     print(f"{card} ptxas sepconv sepconv_wgmma_kernel spills (stores, loads): {spills}")
-    if len(spills) != 8 or any(st or ld for st, ld in spills.values()):
+    if len(spills) != SEPCONV_WGMMA_SPECS or any(st or ld for st, ld in spills.values()):
         fail(f"the wgmma sepconv kernel spills, or lacks a specialisation: {spills}")
     counts = print_sass_mix(card, "sepconv", r"sepconv_wgmma_kernel", top=12)
-    if not counts or len(counts) != 8 or any(
+    if not counts or len(counts) != SEPCONV_WGMMA_SPECS or any(
             c["HGMMA"] + c["IGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
         fail("a wgmma sepconv kernel lacks HGMMA/IGMMA or UTMALDG instructions")
 
@@ -757,14 +780,15 @@ SEPCONV_BUILDS = {
     "neither, no weights": ("-DSEPCONV_WG_NO_TAPS", "-DSEPCONV_WG_NO_MMA", "-DSEPCONV_WG_NO_W"),
     "neither, no loads": ("-DSEPCONV_WG_NO_TAPS", "-DSEPCONV_WG_NO_MMA", "-DSEPCONV_WG_NO_X",
                           "-DSEPCONV_WG_NO_W"),
+    "no skip": ("-DSEPCONV_WG_NO_SKIP",),  # a block end's plan without its x_in and skip
 }
 
 
 def sepconv_probe(torch, sepconv, card):
     """``--sepconv-probe``: the wgmma kernel and its probe builds
     (``SEPCONV_BUILDS``, built in parallel) at the bf16 stride-1 main
-    cases, timed in turns (each build, then each again in reverse order;
-    median of 20 each, launches hidden)."""
+    cases and block ends, timed in turns (each build, then each again in
+    reverse order; median of 20 each, launches hidden)."""
     import ctypes
 
     from segmentron_tpu_torch.ops import kernels
@@ -793,17 +817,18 @@ def sepconv_probe(torch, sepconv, card):
         loaded[name] = sepconv._lib()
     dev, gen, results = torch.device("cuda"), torch.Generator().manual_seed(0), {}
     for case in SEPCONV_CASES:
-        if not case.get("main") or case.get("skip"):
+        if case.get("stride", 1) != 1 or not (case.get("main") or case.get("skip")):
             continue
         _, _, roles = sepconv_inputs(torch, sepconv, case, torch.bfloat16, gen, dev)
         x = roles["x"]
-        packed = sepconv.pack_sepconv(x, *roles["weights"], case["int8"])
+        packed = sepconv.pack_sepconv(x, *roles["weights"], case["int8"], *roles["skip_weights"])
+        kw = dict(dilation=case["d"], pre_relu=case["relu"], skip=case.get("skip"),
+                  x_in=roles["x_in"])
         times = {}
         for name in [*loaded, *reversed(loaded)]:
             kernels._loaded["sepconv"] = loaded[name]
             times.setdefault(name, []).append(median_ms(
-                torch, lambda: sepconv._launch(x, packed, case["d"], case["relu"]),
-                hide_launch=True))
+                torch, lambda: sepconv._launch(x, packed, **kw), hide_launch=True))
         torch.cuda.synchronize()
         print(f"{card} {case['fn']} bfloat16 {case['what']} probe builds, ms (in turns): "
               + "; ".join(f"{b} {' '.join(f'{t:.4f}' for t in v)}" for b, v in times.items()))
@@ -1615,9 +1640,9 @@ def print_sass_mix(card, name, kernels_re, top=14):
         ops = collections.Counter(m.group(1) for m in re.finditer(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T] )?([A-Z][A-Z0-9_]*)", part))
         short = re.search(r"((?:dq|dkv|flash)_(?:f32|bf16)_kernel)(?:ILi(\d+)ELi(\d+)E)?", fn)
-        sep = re.search(r"(sepconv_wgmma_kernel)ILi(\d)ELi(\d+)ELi(\d)E", fn)
+        sep = re.search(r"(sepconv_wgmma_kernel)ILi(\d)ELi(\d+)ELi(\d)ELi(\d)E", fn)
         label = (f"{sep.group(1)}<{'s8' if sep.group(2) == '1' else 'bf16'}, N {sep.group(3)}, "
-                 f"d {sep.group(4)}>"
+                 f"d {sep.group(4)}, {('no skip', 'conv skip', 'sum skip')[int(sep.group(5))]}>"
                  if sep else f"{short.group(1)}<{short.group(2)}, {short.group(3)}>"
                  if short and short.group(2) else short.group(1) if short else fn[:60])
         counts[label] = ops
@@ -2493,8 +2518,8 @@ def probe_modes(torch, card, cfg, defaults, counts):
 
 def probe(torch, card):
     """Cycle shares of the fused separable conv's phases (see the
-    module's docstring): the wgmma kernel's (the bf16 stride-1 cases
-    without skip) or the resident kernel's (the block end)."""
+    module's docstring) at each main case in bf16: the wgmma kernel's, or
+    the resident kernel's for a case that takes it."""
     import ctypes
 
     from segmentron_tpu_torch.ops import kernels, sepconv
@@ -2711,10 +2736,7 @@ def main():
     flash_bwd_results = check_flash_bwd_kernels(torch, attention, card, dev, gen)
     flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)
-    for name in ("fused_sepconv_infer_v3", "fused_sepconv_infer_v2"):
-        if sep_results[name]["bfloat16"]["kernel"] != "sepconv_wgmma_kernel":
-            fail(f"{name}'s main case does not take sepconv_wgmma_kernel: "
-                 f"{sep_results[name]['bfloat16']['kernel']}")
+    check_sepconv_wgmma_cases(sep_results)
 
     # --------------------------------------------------- 3b. ceiling probe
     probe_dot_results = check_probe_dot(torch, probe_dot, card, dev, gen)

@@ -22,10 +22,12 @@
 // Three kernels share this source; the host picks one a call (make_plan;
 // sepconv_plan reports the choice, ops/sepconv.py::sepconv_plan mirrors it):
 //
-//  * sepconv_wgmma_kernel<DOT, N, D> takes bf16 I/O at stride 1 without
-//    skip, dilation D of 1 or 2, C and Co multiples of 8: every bf16 layer
-//    of _kernel_v2, _kernel_v3 (int8_dot or not) and _kernel on the
-//    flagship's paths. Persistent blocks, one an SM, walk the items (8 x 8
+//  * sepconv_wgmma_kernel<DOT, N, D, SKIP> takes bf16 I/O at stride 1,
+//    dilation D of 1 or 2, C, Co and Cin multiples of 8, without skip or with
+//    either skip: every bf16 layer of _kernel_v2, _kernel_v3 (int8_dot or
+//    not) and _kernel on the flagship's paths, and the stride-1 block ends of
+//    _kernel_v3_skip (the middle flow's sum skips, block3's conv skip at
+//    output stride 8). Persistent blocks, one an SM, walk the items (8 x 8
 //    output pixels = the 64 rows of a wgmma A tile, by 2 N output channels,
 //    N = 192 where 384 divides the padded Co (728 -> 768: two items a tile),
 //    else 128). 384 threads: two consumer warpgroups, each one m64nNk16 bf16
@@ -33,7 +35,7 @@
 //    shared memory (setmaxnreg: 232 registers a consumer thread, 40 a
 //    producer); in the producer warpgroup one thread streams the weight
 //    ring (2 N rows x 128 bytes of K a stage, 128-byte swizzled, 2-4 stages)
-//    and each item's out affine, another the input stages (2 or 3): the
+//    and each item's affines, another the input stages (2 or 3): the
 //    haloed box of the step's channels (a 4-D TMA map over NHWC x; zeros
 //    outside the image and past C replace the old kernels' clamped loads)
 //    and the step's depthwise weights. Both run ahead across items. K runs in
@@ -51,6 +53,18 @@
 //    The taps' order ((ky, kx), one fmaf a tap) and the separately rounded
 //    affines are depthwise()'s: the kernels agree bitwise up to the order of
 //    the products' sums.
+//    The block ends read x_in (N, H, W, Co | Cin) by TMA in boxes of [64
+//    channels][8][8 pixels], 128-byte swizzled, into two 8 KB x_in slots.
+//    Sum skip: that is the staging box's layout, so a thread reads its pairs
+//    of x_in where it writes their results, adding x_in to the out affine's
+//    f32 result before the one rounding to bf16 (_sepconv_plain's order); a
+//    warpgroup's boxes alternate between its x_in slot (the item's first box
+//    loaded under its K steps) and its A slot (free once the products are
+//    done), box bx + 1 loading while box bx is worked. Conv skip: the box is
+//    a K-major A tile; after the main chain a second chain of ceil(Cin / 64)
+//    bf16 steps (f32 sums) takes A from the two slots as a ring and B, the
+//    packed skw, through the weight ring; the epilogue forms
+//    (affine + sums * skip scale) + skip bias, then rounds once.
 //    What bounds it on an H100 (chip_smoke.py --probe, --sepconv-probe):
 //    shared-memory traffic and the stream of loads, not the tensor cores. A
 //    step of the v2 main case moves ~190 KB through shared memory (48 KB of
@@ -61,9 +75,12 @@
 //    each item re-reads its 2 N x K weights, and each 64-pixel tile reads its
 //    haloed input twice (once an item), ~600 MB from L2 at v3's main case.
 //
-//  * sepconv_resident_kernel (the first version; f32 I/O with int8_dot, the block ends'
-//    conv and sum skips, stride 2, and bf16 shapes the wgmma kernel does not
-//    take, when the tile's whole depthwise result fits in shared memory): a
+//  * sepconv_resident_kernel (the first version; f32 I/O with int8_dot, the
+//    f32 block ends, the stride-2 block end (its 17 x 17-pixel input box,
+//    73,984 B a 128-channel s8 step, leaves no room for two input stages
+//    beside the weight ring in the wgmma kernel), and bf16 shapes the wgmma
+//    kernel does not take, when the tile's whole depthwise result fits in
+//    shared memory): a
 //    256-thread block owns 8 x 16 output pixels and walks the input channels
 //    in chunks of 32: phase 1 computes the depthwise result of ALL input
 //    channels once into a resident A tile, input chunks double-buffered with
@@ -776,8 +793,9 @@ __global__ void __launch_bounds__(kThreads, 2) sepconv_resident_kernel(const Arg
 }
 
 // ------------------------------------------------------ the wgmma kernel
-// sepconv_wgmma_kernel<DOT, N, D>: bf16 I/O, stride 1, no skip, dilation D
-// (1 or 2), C and Co multiples of 8 (the design is described at the top).
+// sepconv_wgmma_kernel<DOT, N, D, SKIP>: bf16 I/O, stride 1, dilation D (1
+// or 2), no skip, the sum skip or the conv skip, C, Co and Cin multiples of 8
+// (the design is described at the top).
 constexpr int kWgTH = 8, kWgTW = 8, kWgM = kWgTH * kWgTW;  // a block's pixels: A's 64 rows
 constexpr int kWgRow = 128;                   // bytes of K a step: one 128-byte swizzle row
 constexpr int kWgConsumers = 256;             // two warpgroups
@@ -785,11 +803,12 @@ constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
 // 384 threads cap a thread at 168 registers at launch; setmaxnreg then moves
 // them from the producer (40 a thread) to the consumers (232): 64,512 of 65,536
 constexpr int kWgConsumerRegs = 232, kWgProducerRegs = 40;
-constexpr int kWgABytes = kWgM * kWgRow;      // an A slot, or an epilogue box: 8 KB
+constexpr int kWgABytes = kWgM * kWgRow;      // an A slot, an epilogue box, an x_in box: 8 KB
 constexpr int kWgASlots = 3;                  // A slots: steps k - 1, k, k + 1
 constexpr int kWgMaxStages = 4;               // weight-ring stages at most
 constexpr int kWgMaxInStages = 3;             // input stages at most
 constexpr int kWgBarBytes = 8 * (2 * kWgMaxInStages + 4 + 2 * kWgMaxStages);
+constexpr int kWgXinC = 64;                   // channels of an x_in box: one 128-byte row
 
 // Input channels a K step: one 128-byte row of A (64 bf16 or 128 s8).
 __host__ __device__ constexpr int wg_kc(int dot) { return dot == kDotS8 ? 128 : 64; }
@@ -802,13 +821,18 @@ __host__ __device__ constexpr int wg_box_bytes(int d, int dot) {
 __host__ __device__ constexpr int wg_in_bytes(int d, int dot) {
   return wg_box_bytes(d, dot) + 11 * wg_kc(dot) * 4;
 }
-// Bytes of the out affine of an item's 2 N channels, [2 boxes][2][N] f32.
-__host__ __device__ constexpr int wg_osb_bytes(int n) { return 16 * n; }
+// Bytes of the affines of an item's 2 N channels: the out affine, [2
+// warpgroups][2][N] f32, and with the conv skip its affine after it, [2][2][N].
+__host__ __device__ constexpr int wg_osb_bytes(int n, int skip) {
+  return (skip == kSkipConv ? 32 : 16) * n;
+}
 // Shared memory besides the weight ring and the input stages: 1 KB of
 // alignment slack, three A slots (the epilogue's staging too), two slots of
-// the out affine, the mbarriers.
-__host__ __device__ constexpr int wg_fixed_bytes(int n) {
-  return 1024 + kWgASlots * kWgABytes + 2 * wg_osb_bytes(n) + kWgBarBytes;
+// the affines, the mbarriers; with a skip two x_in boxes and their four
+// mbarriers.
+__host__ __device__ constexpr int wg_fixed_bytes(int n, int skip) {
+  return 1024 + kWgASlots * kWgABytes + 2 * wg_osb_bytes(n, skip) + kWgBarBytes +
+         (skip != kSkipNone ? 2 * kWgABytes + 32 : 0);
 }
 // Bytes of a weight-ring stage: 2 N rows (both warpgroups' columns) of a step.
 __host__ __device__ constexpr int wg_stage_bytes(int n) { return 2 * n * kWgRow; }
@@ -820,6 +844,7 @@ struct WgArgs {
   int co_blocks;     // 2 N output channels each
   int items;         // co_blocks x tiles x n: (Co block, tile, image), Co block fastest
   int steps;         // K steps: ceil(c / kc)
+  int skip_steps;    // the conv skip's K steps: ceil(cin / 64)
   int stages;        // weight-ring stages
   int in_stages;     // input stages
   int h, w;          // the image
@@ -930,19 +955,31 @@ __device__ __forceinline__ void wg_depthwise(const WgArgs& p, const char* stage,
   }
 }
 
-template <int DOT, int N, int D>
+template <int DOT, int N, int D, int SKIP>
 __global__ void __launch_bounds__(kWgThreads, 1)
     sepconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                          const __grid_constant__ CUtensorMap map_dw,
                          const __grid_constant__ CUtensorMap map_w,
-                         const __grid_constant__ CUtensorMap map_osb, const WgArgs p) {
+                         const __grid_constant__ CUtensorMap map_osb,
+                         const __grid_constant__ CUtensorMap map_xin,
+                         const __grid_constant__ CUtensorMap map_skw,
+                         const __grid_constant__ CUtensorMap map_ska, const WgArgs p) {
   using Acc = typename std::conditional<DOT == kDotS8, int, float>::type;
-  constexpr int KC = wg_kc(DOT), kStage = wg_stage_bytes(N), kAccN = N / 2;
-  constexpr int kIn = wg_in_bytes(D, DOT), kBox = wg_box_bytes(D, DOT), kOsb = 4 * N;
+  constexpr int KC = wg_kc(DOT), kStage = wg_stage_bytes(N), kAccN = N / 2, kBoxes = N / 64;
+  constexpr int kIn = wg_in_bytes(D, DOT), kBox = wg_box_bytes(D, DOT);
+  constexpr int kOsb = wg_osb_bytes(N, SKIP) / 4;  // floats of an affine slot
+#ifdef SEPCONV_WG_NO_SKIP
+  constexpr int SK = kSkipNone;  // probe build: a skip plan's layout, its skip left out
+#else
+  constexpr int SK = SKIP;
+#endif
   extern __shared__ char smem_raw[];
   char* ring = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   char* a_sm = ring + p.stages * kStage;
-  char* in_sm = a_sm + kWgASlots * kWgABytes;
+  // a skip's two x_in boxes, 1024-byte aligned for the 128-byte swizzle: the
+  // sum skip's one a warpgroup, the conv skip's A tiles a ring of two
+  char* x_sm = a_sm + kWgASlots * kWgABytes;
+  char* in_sm = x_sm + (SKIP != kSkipNone ? 2 * kWgABytes : 0);
   float* osb_sm = reinterpret_cast<float*>(in_sm + p.in_stages * kIn);
   uint64_t* full_in = reinterpret_cast<uint64_t*>(osb_sm + 2 * kOsb);
   uint64_t* empty_in = full_in + kWgMaxInStages;
@@ -950,6 +987,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   uint64_t* empty_osb = full_osb + 2;
   uint64_t* full_w = empty_osb + 2;
   uint64_t* empty_w = full_w + kWgMaxStages;
+  // the x_in boxes' barriers. Sum: full_x[wg] of the box in the warpgroup's
+  // x_in slot, aux_x[wg] of the box in its A slot; conv: the ring's full and
+  // empty barriers
+  uint64_t* full_x = empty_w + kWgMaxStages;
+  uint64_t* aux_x = full_x + 2;
   const int S = p.stages, SI = p.in_stages, steps = p.steps;
   // item it: output channels n0.., pixels (r0.., c0..) of image img
   auto coords = [&](int it, int& n0, int& r0, int& c0, int& img) {
@@ -973,6 +1015,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_init(&full_w[s], 1);
       mbar_init(&empty_w[s], kWgConsumers / 32);
     }
+    if constexpr (SKIP != kSkipNone) {
+      for (int s = 0; s < 2; ++s) {
+        mbar_init(&full_x[s], 1);
+        mbar_init(&aux_x[s], SKIP == kSkipConv ? kWgConsumers / 32 : 1);
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -981,16 +1029,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     setmaxnreg_dec<kWgProducerRegs>();
     // Two threads issue every load, each stream in the order the consumers
     // take it, running ahead across items as far as its slots allow: the
-    // first warp the weight ring and each item's out affine, the second the
-    // input stages (haloed box and depthwise weights).
+    // first warp the weight ring (the conv skip's weights after an item's
+    // steps) and each item's affines, the second the input stages (haloed
+    // box and depthwise weights; then the conv skip's x_in boxes).
     if (threadIdx.x == kWgConsumers) {
       for (int it = blockIdx.x, t = 0, w = 0; it < p.items; it += gridDim.x, ++t) {
         const int n0 = (it % p.co_blocks) * 2 * N;
         const int o = t & 1;
         mbar_wait(&empty_osb[o], ((t >> 1) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full_osb[o], wg_osb_bytes(N));
+        mbar_arrive_expect_tx(&full_osb[o], wg_osb_bytes(N, SK));
         tma_load_3d(osb_sm + o * kOsb, &map_osb, n0, 0, 0, &full_osb[o]);
         tma_load_3d(osb_sm + o * kOsb + 2 * N, &map_osb, n0 + N, 0, 0, &full_osb[o]);
+        if constexpr (SK == kSkipConv) {
+          tma_load_3d(osb_sm + o * kOsb + 4 * N, &map_ska, n0, 0, 0, &full_osb[o]);
+          tma_load_3d(osb_sm + o * kOsb + 6 * N, &map_ska, n0 + N, 0, 0, &full_osb[o]);
+        }
         for (int j = 0; j < steps; ++j, ++w) {
           const int s = w % S;
           mbar_wait(&empty_w[s], ((w / S) & 1) ^ 1);
@@ -1003,8 +1056,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           tma_load_3d(ring + s * kStage + N * kWgRow, &map_w, j * KC, n0 + N, 0, &full_w[s]);
 #endif
         }
+        if constexpr (SK == kSkipConv) {
+          for (int j = 0; j < p.skip_steps; ++j, ++w) {  // 2 N rows x 64 bf16 a step
+            const int s = w % S;
+            mbar_wait(&empty_w[s], ((w / S) & 1) ^ 1);
+            mbar_arrive_expect_tx(&full_w[s], kStage);
+            tma_load_3d(ring + s * kStage, &map_skw, j * kWgXinC, n0, 0, &full_w[s]);
+            tma_load_3d(ring + s * kStage + N * kWgRow, &map_skw, j * kWgXinC, n0 + N, 0,
+                        &full_w[s]);
+          }
+        }
       }
     } else if (threadIdx.x == kWgConsumers + 32) {
+      [[maybe_unused]] int v = 0;  // conv: x_in boxes issued
       for (int it = blockIdx.x, u = 0; it < p.items; it += gridDim.x) {
         int n0, r0, c0, img;
         coords(it, n0, r0, c0, img);
@@ -1018,6 +1082,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           tma_load_4d(in_sm + s * kIn, &map_x, j * KC, c0 - D, r0 - D, img, &full_in[s]);
 #endif
           tma_load_3d(in_sm + s * kIn + kBox, &map_dw, j * KC, 0, 0, &full_in[s]);
+        }
+        if constexpr (SK == kSkipConv) {
+          for (int j = 0; j < p.skip_steps; ++j, ++v) {  // 64 channels of the item's pixels
+            const int s = v % 2;
+            mbar_wait(&aux_x[s], ((v / 2) & 1) ^ 1);
+            mbar_arrive_expect_tx(&full_x[s], kWgABytes);
+            tma_load_4d(x_sm + s * kWgABytes, &map_xin, j * kWgXinC, c0, r0, img, &full_x[s]);
+          }
         }
       }
     }
@@ -1039,6 +1111,22 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   int n_items = 0;
 #endif
   int u = 0, w = 0;  // input stages and ring stages taken, as the producers count them
+  // x_in boxes waited on: sum, those in the warpgroup's x_in slot and in its
+  // A slot; conv, those of the ring
+  [[maybe_unused]] int xs = 0, xa = 0;
+  char* const a_own = a_sm + wg * kWgABytes;  // the warpgroup's A slot: its epilogue's staging
+  char* const x_own = x_sm + wg * kWgABytes;  // sum: its x_in slot
+  // sum: one thread loads the x_in box of the item's channels n0 + ch.. into
+  // dst: 64 channels at 8 x 8 pixels, 128-byte swizzled as the staging is
+  auto load_xin = [&](char* dst, uint64_t* bar, int it, int ch) {
+    int n0, r0, c0, img;
+    coords(it, n0, r0, c0, img);
+    mbar_arrive_expect_tx(bar, kWgABytes);
+    tma_load_4d(dst, &map_xin, n0 + ch, c0, r0, img, bar);
+  };
+  if constexpr (SK == kSkipSum) {
+    if (wt == 0) load_xin(x_own, &full_x[wg], blockIdx.x, wg * N);
+  }
   // input stage u's taps into A slot u % 3, then both warpgroups meet: the
   // slot is complete and visible to wgmma. The slot last held step u - 3,
   // whose products both warpgroups waited on before the barrier that closed
@@ -1115,31 +1203,114 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     named_sync(1, kWgConsumers);
     PROBE(t1);
 
-    // Epilogue: the out affine, bf16, a box of [64 pixels][64 channels] at a
-    // time through the warpgroup's A slot (128-byte swizzled: conflict-free
-    // stores of the fragment), then out in 16-byte vectors, a pixel's 128
-    // bytes by 8 neighbouring lanes, masked at the image's and Co's ends.
+    // The conv skip: a second chain of ceil(cin / 64) steps, m64nNk16 bf16
+    // products into f32 sums, A the x_in box of the item's pixels (a K-major
+    // tile as TMA swizzles it) from the ring of two, B the step's 2 N rows of
+    // skw from the weight ring. The first product writes the sums only, so
+    // that they hold no registers outside the epilogue.
+    [[maybe_unused]] float sk[kAccN];
+    if constexpr (SK == kSkipConv) {
+      auto skip_step = [&](auto first) {
+        const int s = w % S, x = xs % 2;
+        mbar_wait(&full_w[s], (w / S) & 1);
+        mbar_wait(&full_x[x], (xs / 2) & 1);
+        const char* a = x_sm + x * kWgABytes;
+        const char* b = ring + s * kStage + wg * N * kWgRow;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = sw128_desc(a + 32 * kk, 16, 1024);
+          const uint64_t db = sw128_desc(b + 32 * kk, 16, 1024);
+          if (decltype(first)::value && kk == 0)
+            Wgmma<N>::ss0(sk, da, db);
+          else
+            Wgmma<N>::template ss<0>(sk, da, db, 1);
+        }
+        wgmma_commit();
+        if constexpr (!decltype(first)::value) {
+          wgmma_wait<1>();  // the step before's products: its stage and box are free
+          if (lane == 0) {
+            mbar_arrive(&empty_w[(w - 1) % S]);
+            mbar_arrive(&aux_x[(xs - 1) % 2]);
+          }
+        }
+        ++w;
+        ++xs;
+      };
+      skip_step(std::true_type{});
+      for (int j = 1; j < p.skip_steps; ++j) skip_step(std::false_type{});
+      wgmma_wait<0>();
+      fence_regs(sk);
+      if (lane == 0) {
+        mbar_arrive(&empty_w[(w - 1) % S]);
+        mbar_arrive(&aux_x[(xs - 1) % 2]);
+      }
+    }
+
+    // Epilogue: the out affine, with the conv skip's product times its affine
+    // or x_in added (in _sepconv_plain's order, one rounding to bf16), a box
+    // of [64 pixels][64 channels] at a time through the warpgroup's A slot
+    // (128-byte swizzled: conflict-free stores of the fragment), then out in
+    // 16-byte vectors, a pixel's 128 bytes by 8 neighbouring lanes, masked at
+    // the image's and Co's ends. The sum skip's x_in box has the staging's
+    // layout: a thread reads its pairs of x_in where it then writes their
+    // results. Its boxes take turns in the warpgroup's x_in slot (even) and
+    // A slot (odd); box bx + 1 is loaded while box bx is worked, and an
+    // item's first box during the item's K steps.
     const int o = t & 1;
     mbar_wait(&full_osb[o], (t >> 1) & 1);
     const float* scale = osb_sm + o * kOsb + wg * 2 * N;  // [2][N]: scale, bias; zeros past cop
-    char* box = a_sm + wg * kWgABytes;
+    [[maybe_unused]] const float* sk_scale = scale + 4 * N;  // conv: [2][N] the skip's affine
     const int col0 = n0 + wg * N;
 #pragma unroll
-    for (int bx = 0; bx < N / 64; ++bx) {
+    for (int bx = 0; bx < kBoxes; ++bx) {
       if (bx > 0) named_sync(2 + wg, 128);  // the box before has been read out
+      char* box = a_own;
+      if constexpr (SK == kSkipSum) {
+        if (wt == 0 && bx + 1 < kBoxes)  // into the slot box bx - 1 has left
+          load_xin((bx + 1) % 2 ? a_own : x_own, (bx + 1) % 2 ? &aux_x[wg] : &full_x[wg], it,
+                   wg * N + 64 * (bx + 1));
+        if (bx % 2) {
+          box = a_own;
+          mbar_wait(&aux_x[wg], xa & 1);
+          ++xa;
+        } else {
+          box = x_own;
+          mbar_wait(&full_x[wg], xs & 1);
+          ++xs;
+        }
+      }
 #pragma unroll
       for (int j = 8 * bx; j < 8 * bx + 8; ++j) {
         const float2 sc = *reinterpret_cast<const float2*>(scale + 8 * j + 2 * q);
         const float2 bi = *reinterpret_cast<const float2*>(scale + N + 8 * j + 2 * q);
         // multiply and add rounded separately, as the plain version does
-        const float v00 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j]), sc.x), bi.x);
-        const float v01 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 1]), sc.y), bi.y);
-        const float v10 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 2]), sc.x), bi.x);
-        const float v11 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 3]), sc.y), bi.y);
+        float v00 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j]), sc.x), bi.x);
+        float v01 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 1]), sc.y), bi.y);
+        float v10 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 2]), sc.x), bi.x);
+        float v11 = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 3]), sc.y), bi.y);
         const int off = (((j % 8) ^ g) << 4) + 4 * q;  // rows row and row + 8 share row % 8 = g
-        *reinterpret_cast<uint32_t*>(box + row * kWgRow + off) = bf16x2(v00, v01);
-        *reinterpret_cast<uint32_t*>(box + (row + 8) * kWgRow + off) = bf16x2(v10, v11);
+        uint32_t* p0 = reinterpret_cast<uint32_t*>(box + row * kWgRow + off);
+        uint32_t* p1 = reinterpret_cast<uint32_t*>(box + (row + 8) * kWgRow + off);
+        if constexpr (SK == kSkipConv) {
+          const float2 ks = *reinterpret_cast<const float2*>(sk_scale + 8 * j + 2 * q);
+          const float2 kb = *reinterpret_cast<const float2*>(sk_scale + N + 8 * j + 2 * q);
+          v00 = __fadd_rn(__fadd_rn(v00, __fmul_rn(sk[4 * j], ks.x)), kb.x);
+          v01 = __fadd_rn(__fadd_rn(v01, __fmul_rn(sk[4 * j + 1], ks.y)), kb.y);
+          v10 = __fadd_rn(__fadd_rn(v10, __fmul_rn(sk[4 * j + 2], ks.x)), kb.x);
+          v11 = __fadd_rn(__fadd_rn(v11, __fmul_rn(sk[4 * j + 3], ks.y)), kb.y);
+        } else if constexpr (SK == kSkipSum) {
+          const float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p0));
+          const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p1));
+          v00 = __fadd_rn(v00, x0.x);
+          v01 = __fadd_rn(v01, x0.y);
+          v10 = __fadd_rn(v10, x1.x);
+          v11 = __fadd_rn(v11, x1.y);
+        }
+        *p0 = bf16x2(v00, v01);
+        *p1 = bf16x2(v10, v11);
       }
+      if constexpr (SK == kSkipSum) fence_proxy_async();  // TMA writes the slot next
       named_sync(2 + wg, 128);
       const int ch = col0 + 64 * bx;
 #pragma unroll
@@ -1156,6 +1327,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (lane == 0) mbar_arrive(&empty_osb[o]);
     // the staging is read out before the next item's taps write the A slots
     named_sync(1, kWgConsumers);
+    if constexpr (SK == kSkipSum) {  // the next item's first x_in box, under its K steps
+      if (wt == 0 && it + int(gridDim.x) < p.items)
+        load_xin(x_own, &full_x[wg], it + gridDim.x, wg * N);
+    }
     PROBE(t2);
 #ifdef SEPCONV_PROFILE
     wait_cycles += t1 - we;
@@ -1237,20 +1412,21 @@ int old_plan(const Args& p, int sms, Plan& pl) {
   return 0;
 }
 
-// The wgmma kernel takes bf16 I/O at stride 1 without skip, dilation 1 or 2
-// (the flagship's fused layers), and C, Co multiples of 8 (16-byte TMA
-// strides), where two weight stages fit; everything else keeps the older kernels'
-// routes. 192 output channels a warpgroup where they tile the padded Co by
-// twos (768 = 2 x 384), else 128; one persistent block an SM.
+// The wgmma kernel takes bf16 I/O at stride 1, dilation 1 or 2 (the
+// flagship's fused layers), without skip, with the sum skip or with the conv
+// skip, C, Co and Cin multiples of 8 (16-byte TMA strides), where two weight
+// stages fit beside the rest; everything else (stride 2, f32) keeps the older
+// kernels' routes. 192 output channels a warpgroup where they tile the padded
+// Co by twos (768 = 2 x 384), else 128; one persistent block an SM.
 int make_plan(const Args& p, int bf16, int s8, int sms, Plan& pl) {
-  if (bf16 && p.stride == 1 && p.skip == kSkipNone && (p.d == 1 || p.d == 2) &&
-      p.c % 8 == 0 && p.co % 8 == 0) {
+  if (bf16 && p.stride == 1 && (p.d == 1 || p.d == 2) && p.c % 8 == 0 && p.co % 8 == 0 &&
+      (p.skip != kSkipConv || p.cin % 8 == 0)) {
     const int dot = s8 ? kDotS8 : kDotNative;
     const int n_wg = p.cop % 384 == 0 ? 192 : 128;
     // two input stages, as many weight stages as fit (up to 4), then a third
     // input stage where it fits
     const int in_b = wg_in_bytes(p.d, dot), stage_b = wg_stage_bytes(n_wg);
-    const int fixed = wg_fixed_bytes(n_wg) + 2 * in_b;
+    const int fixed = wg_fixed_bytes(n_wg, p.skip) + 2 * in_b;
     int stages = (kMaxSmem - fixed) / stage_b;
     if (stages > kWgMaxStages) stages = kWgMaxStages;
     const int in_stages = kMaxSmem - fixed - stages * stage_b >= in_b ? 3 : 2;
@@ -1313,13 +1489,14 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* pt
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DOT, int N, int D>
+template <int DOT, int N, int D, int SKIP>
 int launch_wgmma(const Args& a, const Plan& pl, cudaStream_t stream) {
   constexpr int KC = wg_kc(DOT);
   const int tiles_x = (a.w + kWgTW - 1) / kWgTW, tiles = tiles_x * ((a.h + kWgTH - 1) / kWgTH);
   const WgArgs p{a.co, a.relu, tiles_x, tiles, pl.co_split, pl.co_split * tiles * a.n,
-                 (a.c + KC - 1) / KC, pl.stages, pl.in_stages, a.h, a.w, a.out};
-  CUtensorMap map_x{}, map_dw{}, map_w{}, map_osb{};
+                 (a.c + KC - 1) / KC, (a.cin + kWgXinC - 1) / kWgXinC, pl.stages, pl.in_stages,
+                 a.h, a.w, a.out};
+  CUtensorMap map_x{}, map_dw{}, map_w{}, map_osb{}, map_xin{}, map_skw{}, map_ska{};
   const cuuint64_t n = a.n, h = a.h, w = a.w, c = a.c;
   const cuuint64_t es = DOT == kDotS8 ? 1 : 2;  // bytes of a packed weight
   // x (n, h, w, c): boxes of KC channels x (8 + 2d) x (8 + 2d) pixels
@@ -1331,11 +1508,22 @@ int launch_wgmma(const Args& a, const Plan& pl, cudaStream_t stream) {
   const cuuint64_t w_strides[2] = {cuuint64_t(a.cp) * es, cuuint64_t(a.cp) * a.cop * es};
   const cuuint32_t w_box[3] = {cuuint32_t(KC), cuuint32_t(N), 1};
   // depthwise weights (11, cp) and out affine (2, cop), f32: boxes of a step's
-  // KC channels, and of N channels
+  // KC channels, and of N channels; the conv skip's affine (2, cop) likewise
   const cuuint64_t dw_dims[3] = {cuuint64_t(a.cp), 11, 1}, osb_dims[3] = {cuuint64_t(a.cop), 2, 1};
   const cuuint64_t dw_strides[2] = {cuuint64_t(a.cp) * 4, cuuint64_t(a.cp) * 44};
   const cuuint64_t osb_strides[2] = {cuuint64_t(a.cop) * 4, cuuint64_t(a.cop) * 8};
   const cuuint32_t dw_box[3] = {cuuint32_t(KC), 11, 1}, osb_box[3] = {cuuint32_t(N), 2, 1};
+  // x_in (n, h, w, co) of the sum skip, (n, h, w, cin) of the conv skip:
+  // boxes of 64 channels x 8 x 8 pixels, 128-byte swizzled (the epilogue's
+  // staging box; a K-major A tile)
+  const cuuint64_t xc = SKIP == kSkipSum ? a.co : a.cin;
+  const cuuint64_t xin_dims[4] = {xc, w, h, n};
+  const cuuint64_t xin_strides[3] = {xc * 2, w * xc * 2, h * w * xc * 2};
+  const cuuint32_t xin_box[4] = {kWgXinC, kWgTW, kWgTH, 1};
+  // packed conv-skip weights (cop, cinp) bf16: boxes of N rows x 64 channels
+  const cuuint64_t skw_dims[3] = {cuuint64_t(a.cinp), cuuint64_t(a.cop), 1};
+  const cuuint64_t skw_strides[2] = {cuuint64_t(a.cinp) * 2, cuuint64_t(a.cinp) * a.cop * 2};
+  const cuuint32_t skw_box[3] = {kWgXinC, cuuint32_t(N), 1};
   if (!encode(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.x, x_dims, x_strides, x_box,
               CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !encode(&map_dw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, a.dwp, dw_dims, dw_strides, dw_box,
@@ -1344,26 +1532,41 @@ int launch_wgmma(const Args& a, const Plan& pl, cudaStream_t stream) {
               osb_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !encode(&map_w, DOT == kDotS8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-              3, a.pw, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
+              3, a.pw, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (SKIP != kSkipNone &&
+       !encode(&map_xin, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.xin, xin_dims, xin_strides,
+               xin_box, CU_TENSOR_MAP_SWIZZLE_128B)) ||
+      (SKIP == kSkipConv &&
+       (!encode(&map_skw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.skw, skw_dims, skw_strides,
+                skw_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !encode(&map_ska, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, a.ska, osb_dims, osb_strides,
+                osb_box, CU_TENSOR_MAP_SWIZZLE_NONE))))
     return -3;
-  auto kernel = sepconv_wgmma_kernel<DOT, N, D>;
+  auto kernel = sepconv_wgmma_kernel<DOT, N, D, SKIP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(pl.grid_x, pl.grid_y, pl.grid_z), kWgThreads, pl.smem, stream>>>(
-      map_x, map_dw, map_w, map_osb, p);
+      map_x, map_dw, map_w, map_osb, map_xin, map_skw, map_ska, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DOT, int N>
+template <int DOT, int N, int SKIP>
 int launch_wgmma_d(const Args& p, const Plan& pl, cudaStream_t s) {
-  return p.d == 1 ? launch_wgmma<DOT, N, 1>(p, pl, s) : launch_wgmma<DOT, N, 2>(p, pl, s);
+  return p.d == 1 ? launch_wgmma<DOT, N, 1, SKIP>(p, pl, s)
+                  : launch_wgmma<DOT, N, 2, SKIP>(p, pl, s);
+}
+template <int SKIP>
+int launch_wgmma_n(const Args& p, const Plan& pl, int s8, cudaStream_t s) {
+  if (s8) return pl.n_wg == 192 ? launch_wgmma_d<kDotS8, 192, SKIP>(p, pl, s)
+                                : launch_wgmma_d<kDotS8, 128, SKIP>(p, pl, s);
+  return pl.n_wg == 192 ? launch_wgmma_d<kDotNative, 192, SKIP>(p, pl, s)
+                        : launch_wgmma_d<kDotNative, 128, SKIP>(p, pl, s);
 }
 int launch_wgmma_route(const Args& p, const Plan& pl, int s8, cudaStream_t s) {
-  if (s8) return pl.n_wg == 192 ? launch_wgmma_d<kDotS8, 192>(p, pl, s)
-                                : launch_wgmma_d<kDotS8, 128>(p, pl, s);
-  return pl.n_wg == 192 ? launch_wgmma_d<kDotNative, 192>(p, pl, s)
-                        : launch_wgmma_d<kDotNative, 128>(p, pl, s);
+  if (p.skip == kSkipSum) return launch_wgmma_n<kSkipSum>(p, pl, s8, s);
+  if (p.skip == kSkipConv) return launch_wgmma_n<kSkipConv>(p, pl, s8, s);
+  return launch_wgmma_n<kSkipNone>(p, pl, s8, s);
 }
 
 // The arguments of a call, checked; -1 for those no kernel takes.

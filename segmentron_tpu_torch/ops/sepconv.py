@@ -24,13 +24,14 @@ carries the weight scales (``fold_sepconv_int8``).
 Bound on one H100 for a middle-flow layer of Xception-65 at output
 stride 8, (1,128,256,728) -> 728: 95.4 MB moved and 34.7 GFLOP, so
 0.0351 ms in bf16 (operations) and 0.0285 ms with ``int8_dot`` (bytes).
-bf16 I/O at stride 1 without skip (every v2 and v3 layer of the
-flagship's paths) takes the ``wgmma`` kernel: input and weights by TMA,
-the taps of a K step on the CUDA cores while the step before's products
-run on the tensor cores, persistent blocks. The block ends (skip),
-stride 2 and f32 I/O keep the first version's kernels: the depthwise
-result of a block's 8 x 16 pixels resident in shared memory where it
-fits, else recomputed per tile of 128 output channels. ``sepconv_plan``
+bf16 I/O at stride 1 (every v2 and v3 layer of the flagship's paths, and
+the stride-1 block ends with their sum or conv skip) takes the ``wgmma``
+kernel: input and weights by TMA, the taps of a K step on the CUDA cores
+while the step before's products run on the tensor cores, persistent
+blocks; x_in by TMA into the epilogue (sum) or as the A of a second
+product (conv). Stride 2 and f32 I/O keep the first version's kernels:
+the depthwise result of a block's 8 x 16 pixels resident in shared
+memory where it fits, else recomputed per tile of 128 output channels. ``sepconv_plan``
 says which kernel a call takes, and the source describes each design and
 what keeps it from the bound.
 
@@ -183,7 +184,7 @@ def _old_plan(n, h, w, c, co, d, stride, skip, itemsize, int8_dot, sms):
 
 def sepconv_plan(n: int, h: int, w: int, c: int, co: int, d: int, stride: int = 1,
                  skip: Optional[str] = None, dtype=torch.bfloat16, int8_dot: bool = False,
-                 sms: int = H100_SMS) -> dict:
+                 sms: int = H100_SMS, cin: int = 0) -> dict:
     """The kernel ``sepconv_launch`` picks for these shapes, the mirror of
     ``sepconv_plan`` in ``csrc/sepconv.cu`` (``chip_smoke.py`` holds the two
     equal on the card): ``kernel`` ("wgmma", "resident" or "recompute"),
@@ -194,28 +195,34 @@ def sepconv_plan(n: int, h: int, w: int, c: int, co: int, d: int, stride: int = 
     channels take), ``co_block`` (output channels of each), ``n_wg`` (the
     wgmma kernel's N a warpgroup), ``stages`` and ``in_stages`` (its
     weight-ring and input stages) and ``smem`` (dynamic shared memory,
-    bytes). Raises ValueError where the
-    source returns -1 or -2.
+    bytes). ``cin``: the conv skip's input channels. Raises ValueError
+    where the source returns -1 or -2.
 
-    The wgmma kernel takes bf16 I/O at stride 1 without skip, dilation
-    1 or 2 (the flagship's fused layers), and C, Co multiples of 8, where
-    two weight stages fit; everything else keeps the older kernels' routes."""
+    The wgmma kernel takes bf16 I/O at stride 1, dilation 1 or 2 (the
+    flagship's fused layers), without skip or with either skip, and C, Co
+    and Cin multiples of 8, where two weight stages fit; everything else
+    (stride 2, f32) keeps the older kernels' routes."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"unsupported dtype {dtype}")
     if (min(n, h, w, c, co, d) < 1 or stride not in (1, 2) or skip not in _SKIP_CODES
-            or (skip == "sum" and stride != 1)):
+            or (skip == "sum" and stride != 1) or (skip == "conv" and cin < 1)):
         raise ValueError("sepconv_plan: arguments no kernel takes")
     bf16 = dtype == torch.bfloat16
     cop = _round_up(co, _PAD_OUT)
-    if bf16 and stride == 1 and skip is None and d in (1, 2) and c % 8 == 0 and co % 8 == 0:
+    if (bf16 and stride == 1 and d in (1, 2) and c % 8 == 0 and co % 8 == 0
+            and (skip != "conv" or cin % 8 == 0)):
         n_wg = 192 if cop % 384 == 0 else 128
         kc = 128 if int8_dot else 64
         # alignment slack, three A slots (the epilogue's staging too), two
-        # slots of the out affine, the barriers, two input stages (the haloed
+        # slots of the affines (the conv skip's too), the barriers, a skip's
+        # two x_in boxes and their barriers, two input stages (the haloed
         # box and the step's [11][kc] f32 depthwise weights); then as many
         # weight stages as fit (up to 4), and a third input stage if it fits
         in_bytes, stage = (8 + 2 * d) ** 2 * kc * 2 + 11 * kc * 4, 2 * n_wg * 128
-        fixed = 1024 + 3 * 64 * 128 + 2 * 16 * n_wg + 8 * (2 * 3 + 4 + 2 * 4) + 2 * in_bytes
+        affines = (32 if skip == "conv" else 16) * n_wg
+        x_in = 2 * 64 * 128 + 32 if skip else 0
+        fixed = (1024 + 3 * 64 * 128 + 2 * affines + 8 * (2 * 3 + 4 + 2 * 4) + x_in
+                 + 2 * in_bytes)
         stages = min((MAX_SMEM - fixed) // stage, 4)
         in_stages = 3 if MAX_SMEM - fixed - stages * stage >= in_bytes else 2
         co_split = _ceil(cop, 2 * n_wg)

@@ -25,14 +25,17 @@ torch.set_num_threads(2)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may take on an H100
 
 
-def _plan(fn, shape, co, d, stride=1, skip=None, int8=False, dtype=torch.bfloat16):
+def _plan(fn, shape, co, d, stride=1, skip=None, int8=False, dtype=torch.bfloat16, cin=128):
+    """The mirror's plan; ``cin`` is read for the conv skip only (the
+    flagship's are 128 and 256: the plan reads it only through cin % 8)."""
     n, h, w, c = shape
-    return sepconv_plan(n, h, w, c, co, d, stride, skip, dtype, int8)
+    return sepconv_plan(n, h, w, c, co, d, stride, skip, dtype, int8,
+                        cin=cin if skip == "conv" else 0)
 
 
-def _takes_wgmma(stride, skip, dtype, d, c, co):
-    return (dtype == torch.bfloat16 and stride == 1 and skip is None and d in (1, 2)
-            and c % 8 == 0 and co % 8 == 0)
+def _takes_wgmma(stride, skip, dtype, d, c, co, cin=128):
+    return (dtype == torch.bfloat16 and stride == 1 and d in (1, 2) and c % 8 == 0
+            and co % 8 == 0 and (skip != "conv" or cin % 8 == 0))
 
 
 @pytest.mark.parametrize("case", SEPCONV_CASES,
@@ -40,13 +43,14 @@ def _takes_wgmma(stride, skip, dtype, d, c, co):
                                        f"{'x'.join(map(str, c['shape'][1:]))}-d{c['d']}"
                                        f"-s{c.get('stride', 1)}-{c.get('skip')}-{c['int8']}")
 def test_case_routes(case):
-    """bf16 at stride 1 without skip takes the wgmma kernel (every main
-    case among them); f32, skip and stride 2 keep the older kernels' routes; all fit
-    the card's shared memory."""
-    stride, skip = case.get("stride", 1), case.get("skip")
+    """bf16 at stride 1 takes the wgmma kernel, with or without skip (every
+    main case among them); f32 and stride 2 keep the older kernels' routes;
+    all fit the card's shared memory."""
+    stride, skip, cin = case.get("stride", 1), case.get("skip"), case.get("cin", 128)
     for dt in (torch.float32, torch.bfloat16):
-        p = _plan(case["fn"], case["shape"], case["co"], case["d"], stride, skip, case["int8"], dt)
-        want = _takes_wgmma(stride, skip, dt, case["d"], case["shape"][3], case["co"])
+        p = _plan(case["fn"], case["shape"], case["co"], case["d"], stride, skip, case["int8"], dt,
+                  cin)
+        want = _takes_wgmma(stride, skip, dt, case["d"], case["shape"][3], case["co"], cin)
         assert (p["kernel"] == "wgmma") == want, (dt, p)
         assert p["smem"] <= SMEM_LIMIT == MAX_SMEM
         n, h, w, _ = case["shape"]
@@ -85,14 +89,16 @@ def test_main_cases_plan():
 
 
 def test_old_routes_unchanged():
-    """f32, the block end and stride 2 as the older kernels' launch picked them,
-    reckoned by hand from its tiles (8 x 16 pixels, 32-channel chunks,
-    128-channel Co tiles)."""
-    # sum-skip block end, int8: the resident A [128][736 + 16] s8 and a
-    # stage of max(2 x 12 x 20 x 32 x 2, 2 x 4 x 6144, 64 x 136 x 4, 2 x 10240)
+    """The sum-skip block end on the wgmma kernel, and f32 and stride 2 as
+    the older kernels' launch picked them, reckoned by hand from its tiles
+    (8 x 16 pixels, 32-channel chunks, 128-channel Co tiles)."""
+    # sum-skip block end, int8: the v3 main case's plan (test_main_cases_plan)
+    # and two x_in boxes of 8 KB with their four barriers; two weight stages
     p = _plan("v3_skip", (1, 128, 256, 728), 728, 2, skip="sum", int8=True)
-    assert p == dict(kernel="resident", tile=(8, 16), grid=(1, 256, 1), co_split=1, co_block=768,
-                     n_wg=0, stages=0, in_stages=0, smem=128 * 752 + 49152)
+    assert p == dict(kernel="wgmma", tile=(8, 8), grid=(132, 1, 1), co_split=2, co_block=384,
+                     n_wg=192, stages=2, in_stages=2,
+                     smem=1024 + 24576 + 6144 + 144 + (16384 + 32) + 2 * (36864 + 5632)
+                     + 2 * 49152)
     # f32 products: the recompute kernel, one Co tile a block
     p = _plan("v2", (1, 64, 128, 728), 728, 1, dtype=torch.float32)
     assert (p["kernel"], p["grid"], p["co_block"]) == ("recompute", (6, 64, 1), 128)
@@ -121,13 +127,14 @@ def test_wgmma_gate():
 
 
 def test_flagship_layer_routes():
-    """Every fused layer of paths A and B: v2 and v3 take the wgmma kernel,
-    the block ends keep the resident kernel; 55 v2, 36 v3 and 18 v3_skip
-    launches a forward with the entry kernel on."""
+    """Every fused layer of paths A and B: v2, v3 and the stride-1 block
+    ends take the wgmma kernel, block2's stride-2 end keeps the resident
+    kernel; 55 v2, 36 v3 and 18 v3_skip launches a forward with the entry
+    kernel on."""
     counts = {}
     for fn, shape, co, d, stride, skip, int8, n in FLAGSHIP_SEPCONV_LAYERS:
         p = _plan(fn, shape, co, d, stride, skip, int8)
-        assert p["kernel"] == ("resident" if fn.endswith("skip") else "wgmma"), (fn, shape)
+        assert p["kernel"] == ("resident" if stride == 2 else "wgmma"), (fn, shape)
         assert p["smem"] <= SMEM_LIMIT
         if not (fn.endswith("v2") and shape[1] == 512):  # block1: the entry kernel's
             counts[fn] = counts.get(fn, 0) + n
