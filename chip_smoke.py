@@ -4,6 +4,7 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--kernels-only | --probe | --probe-dot
+                           | --entry [--baseline=<path>] | --entry-probe
                            | --sepconv [--baseline=<path>] | --sepconv-probe
                            | --flash-fwd [--baseline=<path>] | --flash-fwd-probe
                            | --flash-bwd [--baseline=<path>]
@@ -18,7 +19,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    at the shapes the full-width model gives it, in f32 (TF32 off) and
    bf16, with the stated tolerances; times by CUDA events (median of 20
    after warm-up) beside the bound the card sets for the same work. The
-   entry chain at (1, 1024, 2048, 3); the fused separable conv
+   entry chain at (1, 1024, 2048, 3), before it ``csrc/entrychain.cu``'s
+   ptxas report, the SASS of ``stem_block1_wgmma_kernel`` (HGMMA and
+   UTMALDG required) and its plan (``entry_plan``) against
+   ``ops/entrychain.py::entry_plan`` (``check_entry_build``,
+   ``check_entry_plans``); the fused separable conv
    (``ops/sepconv.py``, four entry points) at the flagship's layers: a
    728-channel middle-flow layer with dilation 2 and its sum-skip block
    end (output stride 8, ``int8_dot``), the stride-2 conv-skip end of
@@ -136,6 +141,19 @@ in turns (old, new, new, old), the old results held to the new at the
 case's bar. ``--sepconv-probe`` times the wgmma kernel's probe builds
 (``SEPCONV_BUILDS``: a phase left out, wrong results, times only) in
 turns at the bf16 stride-1 main cases and block ends.
+``--entry`` neither: the rehearsal after an edit of
+``csrc/entrychain.cu``. It builds that source alone, prints ptxas's
+registers and spills and the bf16 kernel's SASS counts (HGMMA and UTMALDG
+required), holds the source's ``entry_plan`` to the mirror, checks the bf16
+stem + block1 at three small images (each pixel's error printed as a
+grid), runs phase 3's entry checks (both kernels, both dtypes, the bars
+unchanged), times the library route (cuDNN convs and elementwise affines,
+channels-last bf16), and with ``--baseline=<path>`` times another
+``entrychain.cu`` (the first version's C interface) against this one at (1, 1024, 2048,
+3) in bf16 and f32 in turns (old, new, new, old; launch shown, launch
+hidden, host µs a call), with max|old - new| and each against the plain
+version. ``--entry-probe`` times the bf16 kernel's probe builds
+(``ENTRY_BUILDS``: a part left out, wrong results, times only) in turns.
 ``--probe-dot`` neither: it times ``csrc/probe_dot.cu`` and its probe
 builds, each with a phase left out, at the probe's two shapes, and prints
 the median phase stamps of a traced launch.
@@ -169,6 +187,7 @@ their SASS opcode counts and the card's ``mma.sync`` m16n8k8 tf32 and
 """
 
 import dataclasses
+import gzip
 import json
 import math
 import os
@@ -337,21 +356,308 @@ def check_entry_kernels(torch, entrychain, card, dev, gen):
             # time the kernel alone (weights packed once, no counter)
             entry, groups = k["launch"]
             packed = entrychain.pack_weights(x, *groups)
+            ops = (entrychain.pack_operands(x, *groups)
+                   if k["block1"] and dt == torch.bfloat16 else None)
             out = torch.empty_like(got)
-            kernel_ms = median_ms(torch, lambda: entrychain._launch(
-                entry, k["block1"], x, packed, out))
+
+            def launch():
+                entrychain._launch(entry, k["block1"], x, packed, out, ops)
+            kernel_ms = median_ms(torch, launch)
+            hidden_ms = median_ms(torch, launch, hide_launch=True)
             plain_ms = median_ms(torch, lambda: k["plain"](x))
             bound_ms, bound_by = entry_bound(n, h, w, k["block1"], dname, x.element_size())
             print(f"{card} {name} {dname} {tuple(x.shape)}: max|err| {max_err:.6g} "
                   f"(max|ref| {max_ref:.6g}), mean|err| {mean_err:.6g} (mean|ref| "
                   f"{mean_ref:.6g}) [{rule}: {'ok' if ok else 'FAIL'}]; kernel "
-                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
+                  f"{kernel_ms:.4f} ms ({hidden_ms:.4f} launch hidden), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
             if not ok:
                 fail(f"{name} {dname} disagrees with its plain version")
-            k[dname] = dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
+            k[dname] = dict(max_abs_err=max_err, ms=kernel_ms, ms_launch_hidden=hidden_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     return kernels
+
+
+# The image shapes whose plans the source and the mirror must agree on: the
+# flagship's, two images, a ragged last tile row (H/4 = 260), one tile tall.
+ENTRY_PLAN_SHAPES = [(1, 1024, 2048), (2, 1024, 2048), (1, 1040, 2048), (1, 32, 64)]
+
+
+def check_entry_plans(entrychain, card):
+    """``stem_block1_wgmma_kernel``'s plan as the source gives it
+    (``entry_plan``) against the mirror ``ops/entrychain.py::entry_plan``."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, h, w in ENTRY_PLAN_SHAPES:
+        src = entrychain.kernel_entry_plan(n, h, w)
+        mirror = entrychain.plan_ints(entrychain.entry_plan(n, h, w, sms=sms))
+        print(f"{card} entry plan ({n}, {h}, {w}, 3): {src}"
+              + ("" if src == mirror else f" (mirror {mirror})"))
+        if src != mirror:
+            fail(f"entry_plan differs from the source's at ({n}, {h}, {w}, 3)")
+        if src[7] > 232448:
+            fail(f"entry_plan: {src[7]} bytes of shared memory")
+
+
+def check_entry_build(card):
+    """ptxas's report of ``csrc/entrychain.cu`` (registers and spills of
+    every kernel, its warnings) and the SASS of ``stem_block1_wgmma_kernel``,
+    which must hold HGMMA (wgmma) and UTMALDG (the patch's TMA tile load)."""
+    print_ptxas(card, "entrychain")
+    spills = ptxas_spills("entrychain", r"kernel")
+    print(f"{card} ptxas entrychain spills (stores, loads): {spills}")
+    counts = print_sass_mix(card, "entrychain", r"stem_block1_wgmma_kernel", top=14)
+    if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
+        fail("stem_block1_wgmma_kernel lacks HGMMA or UTMALDG instructions")
+    return spills
+
+
+def entry_library(torch, x, stem_p, sep_p, skip_p):
+    """The library route of stem + block1 on ``x`` (NHWC), for timing only:
+    PyTorch's own calls on channels-last tensors of x's dtype, F.conv2d
+    (cuDNN) for conv1, conv2, the depthwise convs (groups) and the 1x1s, the
+    affines (and ReLUs) elementwise. Returns a function giving NHWC."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+
+    def wt(k):  # HWIO -> OIHW, channels-last
+        return k.to(dt).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def ab(a, b):
+        return a.to(dt).view(1, -1, 1, 1), b.to(dt).view(1, -1, 1, 1)
+
+    k1, a1, b1, k2, a2, b2 = stem_p
+    stem = [(wt(k1), *ab(a1, b1)), (wt(k2), *ab(a2, b2))]
+    seps = [((wt(p[0]), *ab(p[1], p[2])), (wt(p[3]), *ab(p[4], p[5]))) for p in sep_p]
+    skip = (wt(skip_p[0]), *ab(skip_p[1], skip_p[2]))
+
+    def run():
+        y = x.permute(0, 3, 1, 2)
+        (w1, s1, c1), (w2, s2, c2) = stem
+        y = torch.relu(F.conv2d(y, w1, stride=2, padding=1) * s1 + c1)
+        y = inp = torch.relu(F.conv2d(y, w2, padding=1) * s2 + c2)
+        for i, ((dw, sd, cd), (pw, sp, cp)) in enumerate(seps):
+            y = F.conv2d(y, dw, stride=2 if i == 2 else 1, padding=1, groups=y.shape[1]) * sd + cd
+            y = F.conv2d(y, pw) * sp + cp
+        y = y + (F.conv2d(inp, skip[0], stride=2) * skip[1] + skip[2])
+        return y.permute(0, 2, 3, 1)
+    return run
+
+
+def baseline_entry_lib(path):
+    """The library of another ``entrychain.cu`` at ``path`` (the first version's C
+    interface: ``entry_stem_block1`` in both dtypes)."""
+    import ctypes
+
+    lib = baseline_lib(path, "entrychain")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.entry_stem_block1.argtypes = [p, p, p, i, i, i, i, p]
+    lib.entry_stem_block1.restype = i
+    return lib
+
+
+def compare_entry(torch, entrychain, card, dev, gen, path):
+    """At (1, 1024, 2048, 3) in bf16 and f32, the baseline source ``path``
+    (another ``entrychain.cu``) and this one on the same image and weights
+    in turns old, new, new, old: each turn the median of 20 with the launch
+    not hidden, hidden behind a spin of the card, and the host's
+    microseconds a call; max|old - new| and each against the plain version
+    (phase 3's bars). Returns {dtype: {"old": [ms, ms], "new": ..., ...}}."""
+    old_lib, new_lib = baseline_entry_lib(path), entrychain._lib()
+    stem_p, sep_p, skip_p = entry_params(torch, gen, dev)
+    x32 = torch.randn(SHAPE, generator=gen).to(dev)
+    n, h, w, _ = SHAPE
+    stream = torch.cuda.current_stream().cuda_stream
+    results = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = dtype_name(dt)
+        x = x32.to(dt)
+        prm = entrychain.pack_weights(x, stem_p, sep_p, skip_p)
+        ops = entrychain.pack_operands(x, stem_p, sep_p, skip_p)
+        outs = {v: torch.empty((n, h // 4, w // 4, 128), dtype=dt, device=dev)
+                for v in ("old", "new")}
+
+        def run(ver):
+            y = outs[ver]
+            bufs = (x.data_ptr(), y.data_ptr(), prm.data_ptr())
+            if ver == "new":  # this source reads the operands beside the f32 buffer
+                bufs += (ops.data_ptr(),)
+            lib = old_lib if ver == "old" else new_lib
+            rc = lib.entry_stem_block1(*bufs, n, h, w, int(dt == torch.bfloat16), stream)
+            if rc != 0:
+                fail(f"{ver} entry_stem_block1 {dname}: error {rc}")
+
+        times = {k: [] for k in ("old", "new", "old_hidden", "new_hidden", "old_host_us",
+                                 "new_host_us")}
+        for ver in ("old", "new", "new", "old"):
+            times[ver].append(median_ms(torch, lambda: run(ver)))
+            times[ver + "_hidden"].append(median_ms(torch, lambda: run(ver), hide_launch=True))
+            times[ver + "_host_us"].append(host_us(torch, lambda: run(ver)))
+        torch.cuda.synchronize()
+        ref = entrychain.fused_stem_block1_plain(x, stem_p, sep_p, skip_p).float()
+        errs = {}
+        for ver, y in outs.items():
+            e = (y.float() - ref).abs()
+            errs[ver] = (e.max().item(), e.mean().item())
+        diff = (outs["old"].float() - outs["new"].float()).abs().max().item()
+        mean = {k: statistics.mean(v) for k, v in times.items()}
+
+        def turns(key, fmt):
+            return " ".join(f"{t:{fmt}}" for t in times[key])
+        print(f"{card} entry stem_block1 {dname} {SHAPE}: baseline {path} against this source, "
+              f"old/new/new/old: old {turns('old', '.4f')} ms, new {turns('new', '.4f')} ms, "
+              f"old / new {mean['old'] / mean['new']:.2f}; launch hidden: old "
+              f"{turns('old_hidden', '.4f')} ms, new {turns('new_hidden', '.4f')} ms, old / new "
+              f"{mean['old_hidden'] / mean['new_hidden']:.2f}; host a call: old "
+              f"{turns('old_host_us', '.2f')} us, new {turns('new_host_us', '.2f')} us; "
+              f"max|old - new| {diff:.6g}; against the plain version (max|err|, mean|err|; "
+              f"max|ref| {ref.abs().max().item():.6g}, mean|ref| {ref.abs().mean().item():.6g}): "
+              f"old {errs['old'][0]:.6g} {errs['old'][1]:.6g}, new {errs['new'][0]:.6g} "
+              f"{errs['new'][1]:.6g}")
+        results[dname] = dict(times, max_old_new=diff, err_old=errs["old"], err_new=errs["new"])
+        del x, prm, ops, outs, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def entry_small_cases(torch, entrychain, card, dev, gen):
+    """The bf16 stem + block1 at small images (one tile tall, a ragged tile
+    row, two images) against the plain version, each output pixel's largest
+    error over its channels printed as a grid for the first image: where a
+    halo or an edge goes wrong shows as whole rows or columns. Returns the
+    cases that miss phase 3's bf16 bar."""
+    stem_p, sep_p, skip_p = entry_params(torch, gen, dev)
+    bad = []
+    for n, h, w in [(1, 32, 64), (1, 48, 128), (2, 64, 128)]:
+        x = torch.randn(n, h, w, 3, generator=gen).to(dev, torch.bfloat16)
+        got = entrychain.fused_stem_block1(x, stem_p, sep_p, skip_p).float()
+        ref = entrychain.fused_stem_block1_plain(x, stem_p, sep_p, skip_p).float()
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        ok = (err.max().item() <= 3e-2 * ref.abs().max().item()
+              and err.mean().item() <= 2e-3 * ref.abs().mean().item())
+        grid = err[0].amax(-1) / ref.abs().max()
+        print(f"{card} entry stem_block1 bfloat16 ({n}, {h}, {w}, 3): max|err| "
+              f"{err.max().item():.6g} (max|ref| {ref.abs().max().item():.6g}), mean|err| "
+              f"{err.mean().item():.6g} [{'ok' if ok else 'FAIL'}]; per pixel, x100 of max|ref|:\n"
+              + "\n".join(" ".join(f"{100 * v:3.0f}" for v in row) for row in grid.tolist()))
+        if not ok:
+            bad.append((n, h, w))
+    return bad
+
+
+def entry_only(torch, entrychain, card):
+    """``--entry``: build ``csrc/entrychain.cu`` alone, check its ptxas
+    report, SASS and plans, run phase 3's entry checks (both kernels, both
+    dtypes), time the library route, and with ``--baseline=<path>`` another
+    source in turns."""
+    from segmentron_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    build(["entrychain"])
+    print(f"{card} build entrychain: {time.perf_counter() - t0:.2f} s")
+    results = {"spills": check_entry_build(card)}
+    check_entry_plans(entrychain, card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
+    bad = entry_small_cases(torch, entrychain, card, dev, gen)
+    if bad:
+        fail(f"stem_block1_wgmma_kernel disagrees with its plain version at {bad}")
+    kernels = check_entry_kernels(torch, entrychain, card, dev, gen)
+    results["kernels"] = {name: {d: k[d] for d in ("float32", "bfloat16")}
+                          for name, k in kernels.items()}
+    stem_p, sep_p, skip_p = entry_params(torch, gen, dev)
+    x = torch.randn(SHAPE, generator=gen).to(dev, torch.bfloat16)
+    lib_fn = entry_library(torch, x, stem_p, sep_p, skip_p)
+    with torch.inference_mode():
+        got = lib_fn().float()
+        ref = entrychain.fused_stem_block1_plain(x, stem_p, sep_p, skip_p).float()
+        lib_ms = median_ms(torch, lib_fn)
+        lib_hidden = median_ms(torch, lib_fn, hide_launch=True)
+    print(f"{card} entry stem_block1 library route bfloat16 {SHAPE} (cuDNN convs, the affines "
+          f"elementwise): {lib_ms:.4f} ms ({lib_hidden:.4f} launch hidden); max|err| against "
+          f"the plain version {(got - ref).abs().max().item():.6g} (max|ref| "
+          f"{ref.abs().max().item():.6g})")
+    results["library_route"] = dict(ms=lib_ms, ms_launch_hidden=lib_hidden)
+    for arg in sys.argv[1:]:
+        if arg.startswith("--baseline="):
+            results["baseline"] = compare_entry(torch, entrychain, card, dev, gen,
+                                                arg.split("=", 1)[1])
+    print(json.dumps(results))
+    return 0
+
+
+# Probe builds of csrc/entrychain.cu (--entry-probe): a part of
+# stem_block1_wgmma_kernel left out, wrong results, times only.
+ENTRY_BUILDS = {
+    "full": (),
+    "no taps": ("-DENTRY_NO_TAPS",),
+    "no products": ("-DENTRY_NO_MMA",),
+    "no epilogues": ("-DENTRY_NO_EPI",),
+    "no weight loads": ("-DENTRY_NO_WLOAD",),
+    "no patch loads": ("-DENTRY_NO_IMG",),
+    "no taps, products, epilogues": ("-DENTRY_NO_TAPS", "-DENTRY_NO_MMA", "-DENTRY_NO_EPI"),
+}
+
+
+def entry_probe(torch, entrychain, card):
+    """``--entry-probe``: ``stem_block1_wgmma_kernel`` and its probe builds
+    (``ENTRY_BUILDS``, built in parallel) at (1, 1024, 2048, 3) bf16, timed
+    in turns (each build, then each again in reverse order; median of 20,
+    launches hidden), with ptxas's registers and spills of each."""
+    from segmentron_tpu_torch.ops import kernels
+
+    loaded = probe_libs(card, "entrychain", ENTRY_BUILDS, entrychain._lib,
+                        ptxas=r"stem_block1_wgmma_kernel")
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
+    stem_p, sep_p, skip_p = entry_params(torch, gen, dev)
+    x = torch.randn(SHAPE, generator=gen).to(dev, torch.bfloat16)
+    packed = (entrychain.pack_weights(x, stem_p, sep_p, skip_p),
+              entrychain.pack_operands(x, stem_p, sep_p, skip_p))
+    out = torch.empty((1, SHAPE[1] // 4, SHAPE[2] // 4, 128), dtype=x.dtype, device=dev)
+    times = {}
+    for name in [*loaded, *reversed(loaded)]:
+        kernels._loaded["entrychain"] = loaded[name]
+        times.setdefault(name, []).append(median_ms(
+            torch, lambda: entrychain._launch("entry_stem_block1", True, x, packed[0], out,
+                                              packed[1]), hide_launch=True))
+    torch.cuda.synchronize()
+    kernels._loaded["entrychain"] = loaded["full"]
+    print(f"{card} stem_block1_wgmma_kernel bfloat16 {SHAPE} probe builds, ms (in turns, launch "
+          "hidden): " + "; ".join(f"{b} {' '.join(f'{t:.4f}' for t in v)}"
+                                  for b, v in times.items()))
+    print(json.dumps({"times": times}))
+    return 0
+
+
+def probe_libs(card, source, builds, lib_fn, ptxas=None):
+    """{build: the library of ``csrc/<source>.cu`` built with that build's
+    flags} for ``builds`` ({name: flags}, "full" among them), compiled at
+    once by ``kernels.build_variants``, each loaded and given its argument
+    types by ``lib_fn`` (the ops module's ``_lib``); with ``ptxas`` (a
+    regex), ptxas's report of the matching kernels of each build. Leaves
+    the full build loaded."""
+    import ctypes
+
+    from segmentron_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    try:
+        paths = kernels.build_variants(source, builds)
+    except RuntimeError as e:
+        fail(f"probe builds of {source}.cu: {e}")
+    print(f"{card} probe builds of {source}.cu: {time.perf_counter() - t0:.2f} s")
+    loaded = {}
+    for name, path in paths.items():
+        if ptxas:
+            print_ptxas(card, f"{source} {name}", log=path.with_suffix(".log"), only=ptxas)
+        kernels._loaded[source] = ctypes.CDLL(str(path))
+        loaded[name] = lib_fn()
+    kernels._loaded[source] = loaded["full"]
+    return loaded
 
 
 # ------------------------------------------------------------ separable conv
@@ -789,32 +1095,9 @@ def sepconv_probe(torch, sepconv, card):
     (``SEPCONV_BUILDS``, built in parallel) at the bf16 stride-1 main
     cases and block ends, timed in turns (each build, then each again in
     reverse order; median of 20 each, launches hidden)."""
-    import ctypes
-
     from segmentron_tpu_torch.ops import kernels
 
-    procs, libs = {}, {}
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    for name, flags in SEPCONV_BUILDS.items():
-        kernels.DEFINES["sepconv"] = flags
-        out = kernels._target("sepconv")
-        if not out.exists():
-            procs[name] = (subprocess.Popen(
-                [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags, "-o", str(out),
-                 str(kernels._SRC / "sepconv.cu")], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True), out)
-        libs[name] = out
-    for name, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            fail(f"nvcc failed for sepconv.cu {name}:\n{log}")
-    print(f"{card} probe builds of sepconv.cu: {time.perf_counter() - t0:.2f} s")
-    kernels.DEFINES["sepconv"] = ()
-    loaded = {}
-    for name, path in libs.items():
-        kernels._loaded["sepconv"] = ctypes.CDLL(str(path))
-        loaded[name] = sepconv._lib()
+    loaded = probe_libs(card, "sepconv", SEPCONV_BUILDS, sepconv._lib)
     dev, gen, results = torch.device("cuda"), torch.Generator().manual_seed(0), {}
     for case in SEPCONV_CASES:
         if case.get("stride", 1) != 1 or not (case.get("main") or case.get("skip")):
@@ -1522,32 +1805,9 @@ def flash_fwd_probe(torch, attention, card):
     serving and train shapes in f32 (the kernel alone, on pieces from the
     split pass) and bf16, timed in turns (each build, then each again in
     reverse order; median of 20 each); the SASS opcode counts."""
-    import ctypes
-
     from segmentron_tpu_torch.ops import kernels
 
-    procs, libs = {}, {}
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    for name, flags in FLASH_FWD_BUILDS.items():
-        kernels.DEFINES["attention"] = flags
-        out = kernels._target("attention")
-        if not out.exists():
-            procs[name] = (subprocess.Popen(
-                [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags, "-o", str(out),
-                 str(kernels._SRC / "attention.cu")], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True), out)
-        libs[name] = out
-    for name, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            fail(f"nvcc failed for attention.cu {name}:\n{log}")
-    print(f"{card} probe builds of attention.cu: {time.perf_counter() - t0:.2f} s")
-    kernels.DEFINES["attention"] = ()
-    loaded = {}
-    for name, path in libs.items():
-        kernels._loaded["attention"] = ctypes.CDLL(str(path))
-        loaded[name] = attention._lib()
+    loaded = probe_libs(card, "attention", FLASH_FWD_BUILDS, attention._lib)
     print_sass_mix(card, "attention", r"flash_(bf16|f32)_kernel")
     dev, gen, results = torch.device("cuda"), torch.Generator().manual_seed(0), {}
     for case in FLASH_CASES[:2] + FLASH_CASES[4:6]:
@@ -1630,7 +1890,9 @@ def print_sass_mix(card, name, kernels_re, top=14):
         return
     sass = subprocess.run([tool, "-sass", str(_target(name))], capture_output=True,
                           text=True, check=True).stdout
-    with open(os.path.join(OUT_DIR, f"{name}.sass"), "w") as f:
+    # gzipped: the listings of every source together pass the 64 MiB that a
+    # chip run brings back
+    with gzip.open(os.path.join(OUT_DIR, f"{name}.sass.gz"), "wt") as f:
         f.write(sass)
     counts = {}
     for part in sass.split("Function : ")[1:]:
@@ -2365,23 +2627,31 @@ def probe_dot_bound(m, k, n, dname, itemsize):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def print_ptxas(card, name):
+def print_ptxas(card, name, log=None, only=None):
     """Registers, shared memory and spills of each kernel specialisation of
-    ``csrc/<name>.cu``, from ptxas's report of the build."""
+    ``csrc/<name>.cu``, from ptxas's report of the build (``log``: that of
+    another build, printed under ``name``; ``only``: a regex the kernels
+    printed match)."""
     import re
 
     from segmentron_tpu_torch.ops.kernels import _target
 
     fn = None
-    for ln in _target(name).with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in ln:
+    for ln in (log or _target(name).with_suffix(".log")).read_text().splitlines():
+        if "Compiling entry function" in ln and only and not re.search(only, ln):
+            fn = None
+        elif "Compiling entry function" in ln:
             # the mangled name's kernel and its template arguments (Lb1E: int8;
             # the flash backward's Dv and, in f32, the Dk its sums are sized for)
             m = re.search(r"\d(probe_dot_(?:wgmma|mma_sync))(?:ILb([01])E)?", ln)
             sep = re.search(r"\d(sepconv_(?:wgmma_|resident_)?kernel)I(\w+?)EEv", ln)
             mb = re.search(r"\d((?:dq|dkv|flash)_(?:f32|bf16)_kernel)ILi(\d+)E(?:Li(\d+)E)?",
                            ln)
-            if sep:  # <T, DOT> of the older kernels, <DOT, N> of the wgmma kernel
+            ent = re.search(r"\d((?:stem_block1_wgmma|stem_block1|stem)_kernel)(?:I(\w+?)E)?", ln)
+            if ent:  # the entry kernels: <f> f32, <13__nv_bfloat16> bf16
+                fn = ent.group(1) + (f"<{'f32' if ent.group(2) == 'f' else 'bf16'}>"
+                                     if ent.group(2) else "")
+            elif sep:  # <T, DOT> of the older kernels, <DOT, N> of the wgmma kernel
                 fn = f"{sep.group(1)}<{sep.group(2)}>"
             elif m:
                 arg = m.group(2) and ("<int8>" if m.group(2) == "1" else "<bf16>")
@@ -2587,11 +2857,8 @@ def probe_dot_breakdown(torch, card):
 
     from segmentron_tpu_torch.ops import kernels, probe_dot
 
-    libs = {}
-    for name, flags in {**PROBE_DOT_BUILDS, "trace": ("-DPROBE_DOT_TRACE",)}.items():
-        kernels.DEFINES["probe_dot"] = flags
-        kernels._loaded.pop("probe_dot", None)
-        libs[name] = probe_dot._lib()
+    libs = probe_libs(card, "probe_dot", {**PROBE_DOT_BUILDS, "trace": ("-DPROBE_DOT_TRACE",)},
+                      probe_dot._lib)
     libs["trace"].probe_dot_trace.argtypes = [ctypes.c_void_p]
     gen, dev = torch.Generator().manual_seed(0), torch.device("cuda")
     one = torch.zeros(1, device=dev)
@@ -2635,7 +2902,6 @@ def probe_dot_breakdown(torch, card):
             print(f"{card} probe_dot {dtype_name(dt)} ({m}, {k}, {n}) trace, median us: "
                   + ", ".join(f"{name} {v:.2f}" for name, v in phases.items()))
             stamps[:] = 0
-    kernels.DEFINES.pop("probe_dot", None)
     kernels._loaded.pop("probe_dot", None)
     return 0
 
@@ -2680,6 +2946,10 @@ def main():
         return flash_fwd_only(torch, attention, card)
     if "--sepconv" in sys.argv[1:]:
         return sepconv_only(torch, sepconv, card)
+    if "--entry" in sys.argv[1:]:
+        return entry_only(torch, entrychain, card)
+    if "--entry-probe" in sys.argv[1:]:
+        return entry_probe(torch, entrychain, card)
     if "--sepconv-probe" in sys.argv[1:]:
         return sepconv_probe(torch, sepconv, card)
     if "--flash-fwd-probe" in sys.argv[1:]:
@@ -2733,6 +3003,8 @@ def main():
     check_fwd_plans(torch, attention, card)
     check_sepconv_build(card)
     check_sepconv_plans(torch, sepconv, card)
+    check_entry_build(card)
+    check_entry_plans(entrychain, card)
     flash_bwd_results = check_flash_bwd_kernels(torch, attention, card, dev, gen)
     flash_results = check_flash_kernel(torch, attention, card, dev, gen)
     sep_results = check_sepconv_kernels(torch, sepconv, card, dev, gen)

@@ -1,4 +1,4 @@
-// Xception-65 entry chain as two hand-written Hopper kernels (sm_90a).
+// Xception-65 entry chain as hand-written Hopper kernels (sm_90a).
 //
 //   entry_stem         image (N,H,W,3) -> conv1 3x3 s2 +BN+ReLU -> conv2 3x3 s1
 //                      +BN+ReLU -> (N,H/2,W/2,64)
@@ -9,26 +9,73 @@
 //
 // Replaces segmentron_tpu/ops/entrychain.py::_stem_kernel (fused_stem) and
 // ::_stem_block1_kernel (fused_stem_block1). Inference only, BN folded on the
-// host into per-channel affines (y = a*x + b).
+// host into per-channel affines (y = a*x + b). Every stage is rounded to the
+// I/O type at the plain PyTorch version's points.
 //
 // Bound on an H100: stem+block1 at 1024x2048 does ~27.3 G MAC per image and
-// moves ~46 MB (bf16), so it is bound by operations; the stem alone (~10.1 G
-// MAC, ~80 MB) is bound by bytes. Design: one thread block per output tile
-// builds the tile's receptive field stage by stage in shared memory (image
-// patch -> conv1 -> conv2 -> sep1 -> sep2 -> sep3 + skip), recomputing the
-// halos, so no intermediate touches device memory. In bf16 the convs that
-// are matrix products (conv1 through an im2col copy, conv2 as an implicit
-// im2col GEMM, the pointwise convs, the skip) run on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, f32 accumulate), A fragments gathered from
-// shared memory with ldmatrix; the depthwise convs are f32 FMA on the CUDA
-// cores. In f32 every stage is f32 FMA. Stages are stored in the I/O type, at
-// the same rounding points as the plain PyTorch version. What bounds this
-// version is not the tensor cores: the stages of a tile run one after the
-// other between barriers, each short and latency-bound, and conv2 computes
-// 2.1x its useful pixels (halos of a 4 x 8 output tile).
+// moves ~46 MB (bf16), so it is bound by operations (0.0552 ms at the dense
+// bf16 peak); the stem alone (~10.1 G MAC, ~80 MB) is bound by bytes.
+//
+// stem + block1 in bf16: stem_block1_wgmma_kernel. Persistent blocks, one an
+// SM, of three warpgroups, walk output tiles of 8 x 8 pixels at 1/4
+// resolution (64 rows: every product fills whole 64-row wgmma tiles). A
+// tile's stages stay in shared memory and recompute their halos (1.39x the
+// useful multiply-adds; 1.77x with the spare rows of whole tiles, conv1's K
+// padding and the third warpgroup's repeat of the skip and pw3); in order:
+//   conv1  wgmma m64n32k16, A from registers gathered from the image patch
+//          (which TMA loads as a 47 x 152 box of the (n, h, w*3) image,
+//          its rows starting 16-byte aligned, zeros past its edges, a tile
+//          ahead), K 27 -> 32;
+//   conv2  wgmma m64n64k16, A straight from c1: c1 is kept as four planes
+//          of 8 channels without swizzle, and conv2 runs over a raster as wide
+//          as c1, so tap (dy, dx) is the same rows shifted by 23 dy + dx, a
+//          descriptor 16 (23 dy + dx) bytes further on (no im2col); two M
+//          tiles in flight, one's epilogue under the other's products;
+//   skip   wgmma m64n64k16, A from registers read from x2 at stride 2; its
+//          rounded result waits in registers for the last epilogue;
+//   sep1, sep2  in chunks of 64 output rows, two a warpgroup: a chunk's
+//          depthwise taps (f32 FMA on the CUDA cores, 4 channels of a run
+//          of 4 pixels a thread from a 3 x 6 window) write its A tile,
+//          128-byte swizzled, then wgmma m64n128k16 and the epilogue write
+//          the next stage, while the other warpgroups tap;
+//   sep3   the stride-2 taps of all warpgroups into one A tile, 64 output
+//          channels of pw3 a warpgroup, the skip added, staged and written
+//          out in 16-byte vectors.
+// The B operands come once a tile and stage as bf16, 128-byte swizzled as
+// wgmma reads them, by TMA bulk copies from ops/entrychain.py's
+// pack_operands buffer into two weight slots, each refilled for the stage
+// after next while the stage between runs; the f32 affines and taps come
+// once a block. Epilogues apply the affine, the ReLU and the zeros outside
+// the image (the next 3x3's padding) on the accumulators and store 16-byte
+// rows with stmatrix. Shared memory: 228,352 of 232,448 bytes a block (the
+// regions are listed with the kernel; ops/entrychain.py::entry_plan mirrors
+// them); stages that are read and written at once share space, each
+// chunk's output rows placed where the taps have moved on.
+// On an NVIDIA H100 80GB HBM3 at 700.00 W it takes 0.4279 ms at (1, 1024,
+// 2048, 3) with the launch not hidden, 2.21x the first version in turns and
+// 7.8x the bound (chip_smoke.py --entry --baseline). What bounds it is not
+// the tensor cores or the loads (--entry-probe, launch hidden: 0.437 ms;
+// without the depthwise taps 0.246, without the epilogues 0.236, without
+// the products 0.317, without the weight or the patch loads 0.435 and
+// 0.438): the taps on the CUDA cores and the epilogues, in stages that run
+// one after the other between barriers.
+//
+// The stem (both types) and stem + block1 in f32: the first version. One
+// thread block per output tile builds the tile's receptive field stage by
+// stage in shared memory (image patch -> conv1 -> conv2 -> sep1 -> sep2 ->
+// sep3 + skip), recomputing the halos. In bf16 the convs that are matrix
+// products run on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
+// accumulate); the depthwise convs are f32 FMA on the CUDA cores. In f32
+// every stage is f32 FMA. Its stages run one after the other between
+// barriers, each short and latency-bound.
 //
 // Zero padding: every stage's values at positions outside the image are set
 // to 0 before the next 3x3 reads them (rows and columns, both edges).
+//
+// Probe builds (chip_smoke.py --entry-probe; wrong results, times only):
+// -DENTRY_NO_TAPS, _NO_MMA, _NO_EPI, _NO_WLOAD, _NO_IMG leave the depthwise
+// taps, the products, the epilogues, the weight loads or the patch loads out
+// of stem_block1_wgmma_kernel.
 //
 // C interface: each entry returns cudaGetLastError() after its launch.
 
@@ -36,7 +83,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, tensor maps
 
 namespace {
 
@@ -87,9 +137,6 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 template <typename T> __device__ __forceinline__ T cvt(float v);
 template <> __device__ __forceinline__ float cvt<float>(float v) { return v; }
@@ -486,6 +533,688 @@ __global__ void __launch_bounds__(kThreads, 2)
       ToOutput<128, false, T>{y, skip, n, kB1TW, t0, u0, H4, W4, prm + kAP3, prm + kBP3});
 }
 
+// ====================================== stem + block1 in bf16: the wgmma kernel
+// stem_block1_wgmma_kernel (the design is described at the top). Output
+// tile: 8 x 8 pixels at 1/4 resolution. Stages at 1/2 resolution, origins
+// relative to (2 t0, 2 u0):
+//   c1 conv1  23 x 23 at (-4, -4): four channel planes of 560 pixels x 16 B
+//             (8 channels), no swizzle: conv2's A tiles are windows of them
+//   x2 conv2  21 x 21 at (-3, -3), computed over a raster 23 wide (columns
+//             21, 22 of a row are spare), so that tap (dy, dx) of raster row
+//             o reads c1 pixel o + 23 dy + dx: one descriptor a tap
+//   x3 sep1   19 x 19 at (-2, -2);  x4 sep2 17 x 17 at (-1, -1)
+//   image patch 47 rows x 48 pixels x 3 at (4 t0 - 9, 4 u0 - 9), by TMA
+// x2 (64 ch), x3 and x4 (128 ch) are pixel-major, a pixel's row padded by
+// 16 bytes (144, 272 bytes), so that the epilogues' stmatrix rows are free
+// of bank conflicts and a tap's load is a constant offset from its pixel's.
+constexpr int kWGs = 3, kWgThreadsB1 = 128 * kWGs;  // three warpgroups
+constexpr int kB1Tile = 8;
+constexpr int kC1W = 23, kC1Pix = 529, kC1Plane = 560, kC1PlaneBytes = kC1Plane * 16;
+constexpr int kX2W = 21, kX3W = 19, kX4W = 17;
+constexpr int kX2Pix = 441, kX3Pix = 361, kX4Pix = 289;
+constexpr int kX2Px = 144, kX34Px = 272;  // bytes a pixel: 64 or 128 channels and 16
+// The patch's rows start 5 elements before its first pixel: TMA takes a
+// box only where its innermost start coordinate is a multiple of 16 bytes
+// (12 u0 - 32 elements), so a row is 152 elements (304 bytes).
+constexpr int kImgRows = 47, kImgElems = 152, kImgLead = 5, kImgBytes = kImgRows * kImgElems * 2;
+// 64-row M tiles, as many for each warpgroup: conv1 9 (529 rows), conv2 9
+// (483 rows of the 23-wide raster), sep1 6 chunks (361), sep2 6 (289)
+constexpr int kMT1 = 9, kMT2 = 9, kMT3 = 6, kMT4 = 6;
+// The bf16 operand buffer (ops/entrychain.py::pack_operands), bytes: each B
+// operand K-major in 128-byte-swizzled boxes of [N rows][64 K], as wgmma
+// reads it from a weight slot.
+constexpr int kOpConv1 = 0, kOpConv1Bytes = 32 * 64 * 2;      // K 27 -> 64
+constexpr int kOpConv2 = 4096, kOpConv2Bytes = 64 * 320 * 2;  // K 288 -> 320
+constexpr int kOpSkip = 45056, kOpPw1 = 61440, kOpK64Bytes = 128 * 64 * 2;
+constexpr int kOpPw2 = 77824, kOpPw3 = 110592, kOpK128Bytes = 128 * 128 * 2;
+constexpr int kOpBytes = kOpPw3 + kOpK128Bytes;
+// Shared memory, bytes from the 1024-aligned base (ops/entrychain.py::_regions).
+// W0 takes conv2, pw1, pw3; W1 conv1, the skip, pw2: each slot is refilled
+// for the stage after next while the stage between runs, but W0 serves
+// sep2 as the third warpgroup's A tile and takes pw3 after it. A0, A1: the
+// A tiles (64 rows x 128 channels; sep1's take 8 KB) of the pointwise
+// products, the output's staging (and, before the first tile, the raw
+// affines). The stage area X:
+//   c1 and x4 at X, x3 at X + 1904, x2 at X3 + 36352, the patch at X + 78720.
+// sep1 writes x3 over the rows of x2 its taps have left behind, sep2 x4
+// over x3's: chunk m's rows lie below every row a later chunk reads, and
+// its epilogue waits for the taps of the chunks before it. Rows outside a
+// stage go to spare bytes: A0 in conv1 and conv2, A1's upper half in sep1,
+// X's tail past x3 in sep2.
+constexpr int kW0 = 0, kW1 = 40960, kSlot0 = 73728, kSlot1 = 90112, kABox = 8192;
+constexpr int kX = 106496, kX3 = kX + 1904, kX2 = kX3 + 36352, kImg = kX + 78720;
+constexpr int kC1 = kX, kX4 = kX;
+constexpr int kXEnd = kX2 + kX2Pix * kX2Px;
+constexpr int kPrm = kXEnd;
+// f32 depthwise taps and affines, copied once a block (floats)
+constexpr int kPDW1 = 0, kPDW2 = 704, kPDW3 = 2112, kPrmFloats = 3520;
+constexpr int kBar = kPrm + kPrmFloats * 4, kBars = 16;
+// The products' affines, a float4 (a[2k], a[2k + 1], b[2k], b[2k + 1]) a
+// channel pair, so that an epilogue reads a column pair's in one load
+// (floats): conv1, conv2, pw1, pw2, pw3, the skip. They arrive raw in A0 at
+// the same offsets (a (C) then b (C) each).
+constexpr int kAff = kBar + kBars * 8;
+constexpr int kQA1 = 0, kQA2 = 64, kQP1 = 192, kQP2 = 448, kQP3 = 704, kQS = 960, kAffFloats = 1216;
+constexpr int kB1WgSmem = kAff + kAffFloats * 4 + 1024;  // and 1 KB of alignment slack
+enum { kBarPrm = 0, kBarImg = 1, kBarW0 = 2, kBarW1 = 3, kBarTap3 = 4, kBarTap4 = 10 };
+// sep1's and sep2's chunk m writes its rows once the taps of chunks
+// m - kTapWaits .. m - 1 are done: all of them, since a chunk may write over
+// rows that any chunk before it reads
+constexpr int kTapWaits = kMT3 - 1;
+static_assert(kC1 + 4 * kC1PlaneBytes <= kX2, "c1 and x2 are read and written at once");
+static_assert(kImg % 128 == 0 && kImg >= kX4 + kX4Pix * kX34Px && kImg + kImgBytes <= kXEnd &&
+                  kImg >= kC1 + 4 * kC1PlaneBytes,
+              "the next patch lands beside x4, c1 beside the patch");
+static_assert(kX3 + kX3Pix * kX34Px + 1024 <= kXEnd, "x3 fits X, and sep2's spare rows after it");
+static_assert(kB1WgSmem <= 232448, "shared memory of a block");
+static_assert((kX2W - 1) * kC1W + kX2W - 1 + 2 * kC1W + 2 < kC1Plane,
+              "conv2's windows of the rows it keeps stay in c1's planes");
+static_assert(kC1 + (3 * kC1Plane + kMT2 * 64 + 2 * kC1W + 2) * 16 <= kXEnd,
+              "the spare rows' windows stay in shared memory");
+static_assert(kTapWaits == kMT3 - 1 && kMT3 == kMT4 && kBarTap4 - kBarTap3 == kMT3 &&
+                  kBarTap4 + kMT4 <= kBars,
+              "an epilogue waits for the taps of every chunk before it, one barrier a chunk");
+static_assert(kMT1 % kWGs == 0 && kMT2 % kWGs == 0 && kMT3 % kWGs == 0 && kMT4 % kWGs == 0,
+              "every warpgroup takes as many M tiles");
+
+struct B1Args {
+  const float* prm;   // pack_weights' f32 buffer: affines and depthwise taps read
+  const char* ops;    // pack_operands' bf16 B operands
+  __nv_bfloat16* y;   // (n, h/4, w/4, 128)
+  int h, w;
+  int tiles_x, tiles_y, tiles;  // 8 x 8 output tiles: across, down, all images
+};
+
+// TMA bulk copy (no tensor map) of `bytes` into shared memory; completes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// wgmma descriptor of an operand without swizzle: 8-row core matrices of 16
+// bytes a row, lbo between core matrices along K, sbo between 8-row groups.
+__device__ __forceinline__ uint64_t plain_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | uint64_t(lbo >> 4) << 16 |
+         uint64_t(sbo >> 4) << 32;
+}
+// Four 8 x 8 bf16 matrices from the mma fragment layout; lane i gives the
+// address of row i % 8 of matrix i / 8.
+__device__ __forceinline__ void stmatrix_x4(void* row, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(row)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+
+// A warpgroup's m64nN f32 accumulators through the affine (aff: float4s
+// (a, a, b, b) of the column pairs, from the first column), the ReLU, and
+// zeros for rows outside the image (in0: the thread's row g, in1: row g +
+// 8), rounded to bf16 and stored by stmatrix, 16 bytes a row: dst(row,
+// chunk) is where the 8 channels 8 chunk .. of row `row` (0..63) go.
+template <int N, bool kRelu, typename Dst>
+__device__ __forceinline__ void epilogue(const float (&acc)[N / 2], const float* aff, bool in0,
+                                         bool in1, const Dst& dst) {
+#ifndef ENTRY_NO_EPI
+  const int lane = threadIdx.x % 32, q = lane % 4, mi = lane / 8;
+  const int row = 16 * ((threadIdx.x % 128) / 32) + (mi & 1) * 8 + lane % 8;
+  const float4* ab = reinterpret_cast<const float4*>(aff) + q;
+#pragma unroll
+  for (int j = 0; j < N / 8; j += 2) {
+    uint32_t r[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 t = ab[4 * (j + h)];  // columns 8 (j + h) + 2 q, + 1
+      float v0 = fmaf(acc[4 * (j + h)], t.x, t.z), v1 = fmaf(acc[4 * (j + h) + 1], t.y, t.w);
+      float v2 = fmaf(acc[4 * (j + h) + 2], t.x, t.z);
+      float v3 = fmaf(acc[4 * (j + h) + 3], t.y, t.w);
+      if (kRelu) {
+        v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
+      }
+      r[2 * h] = in0 ? bf16x2(v0, v1) : 0u;
+      r[2 * h + 1] = in1 ? bf16x2(v2, v3) : 0u;
+    }
+    stmatrix_x4(dst(row, j + (mi >> 1)), r[0], r[1], r[2], r[3]);
+  }
+#endif
+}
+
+// Depthwise 3x3 (stride S) and its affine on the CUDA cores, rounded to bf16,
+// into rows 0..63 of an A tile (K-major, 128-byte swizzled boxes of 64
+// channels): row i is output pixel p0 + i of a raster WO wide (pixels past
+// `total` are left as they are), reading the stage `in` (WI wide, C
+// channels, 2 C + 16 bytes a pixel) from (S r, S c). Thread t of NT takes
+// the 4 channels of vector t % (C / 4); its taps and affine (dw (9, C), a
+// (C), b (C) at dwp) are read into registers for the call. At stride 1 it
+// takes rows in runs of four, four pixels of one image row from a 3 x 6
+// window of loads at constant offsets, each loaded value converted once
+// for up to three outputs (a run that wraps to the next row goes pixel by
+// pixel). One fmaf a tap in (dy, dx) order.
+template <int C, int S, int WI, int WO, int NT>
+__device__ __forceinline__ void taps(const char* in, char* a, int p0, int total,
+                                     const float* dwp, int t) {
+#ifndef ENTRY_NO_TAPS
+  constexpr int V = C / 4, PL = NT / V, PB = 2 * C + 16;
+  const int v = t % V;
+  float w[9][4], sa[4], sb[4];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    const float4 u = *reinterpret_cast<const float4*>(dwp + k * C + 4 * v);
+    if (k < 9) {
+      w[k][0] = u.x; w[k][1] = u.y; w[k][2] = u.z; w[k][3] = u.w;
+    } else {
+      sa[0] = u.x; sa[1] = u.y; sa[2] = u.z; sa[3] = u.w;
+    }
+  }
+  {
+    const float4 u = *reinterpret_cast<const float4*>(dwp + 10 * C + 4 * v);
+    sb[0] = u.x; sb[1] = u.y; sb[2] = u.z; sb[3] = u.w;
+  }
+  const char* const src = in + v * 8;
+  auto fma4 = [&](float (&acc)[4], const uint2& x, int k) {
+    acc[0] = fmaf(bf_lo(x.x), w[k][0], acc[0]);
+    acc[1] = fmaf(bf_hi(x.x), w[k][1], acc[1]);
+    acc[2] = fmaf(bf_lo(x.y), w[k][2], acc[2]);
+    acc[3] = fmaf(bf_hi(x.y), w[k][3], acc[3]);
+  };
+  auto emit = [&](int i, const float (&acc)[4]) {
+    const uint2 o = make_uint2(bf16x2(fmaf(acc[0], sa[0], sb[0]), fmaf(acc[1], sa[1], sb[1])),
+                               bf16x2(fmaf(acc[2], sa[2], sb[2]), fmaf(acc[3], sa[3], sb[3])));
+    *reinterpret_cast<uint2*>(a + (v / 16) * kABox + i * 128 + ((((v % 16) / 2) ^ (i & 7)) << 4) +
+                              (v % 2) * 8) = o;
+  };
+  auto single = [&](int i) {  // row i alone
+    const int p = p0 + i, r = p / WO, c = p - r * WO;
+    const char* x0 = src + (S * r * WI + S * c) * PB;
+    uint2 x[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+      x[k] = *reinterpret_cast<const uint2*>(x0 + ((k / 3) * WI + k % 3) * PB);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 9; ++k) fma4(acc, x[k], k);
+    emit(i, acc);
+  };
+  if constexpr (S == 2) {
+#pragma unroll 1
+    for (int i = t / V; i < 64 && p0 + i < total; i += PL) single(i);
+  } else {
+#pragma unroll 1
+    for (int i = 4 * (t / V); i < 64 && p0 + i < total; i += 4 * PL) {
+      const int p = p0 + i, r = p / WO, c = p - r * WO;
+      const int n = min(4, total - p);  // rows of the run inside the stage
+      if (c + 3 < WO) {  // p .. p + 3 in one row: input columns c .. c + 5
+        const char* x0 = src + (r * WI + c) * PB;
+        uint2 x[3][6];
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 6; ++dx)
+            x[dy][dx] = *reinterpret_cast<const uint2*>(x0 + (dy * WI + dx) * PB);
+        float acc[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) fma4(acc[j], x[dy][j + kx], 3 * dy + kx);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < n) emit(i + j, acc[j]);
+      } else {
+#pragma unroll 1
+        for (int j = 0; j < n; ++j) single(i + j);
+      }
+    }
+  }
+#endif
+}
+
+#ifdef ENTRY_NO_MMA
+#define WG_MMA(stmt)  // probe build: the products left out
+#else
+#define WG_MMA(stmt) stmt
+#endif
+
+__global__ void __launch_bounds__(kWgThreadsB1, 1)
+    stem_block1_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const B1Args p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // the old kernels' declaration
+  char* const base =
+      reinterpret_cast<char*>(smem_raw) + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  char* const w0 = base + kW0;
+  char* const w1 = base + kW1;
+  char* const c1 = base + kC1;
+  char* const x2 = base + kX2;
+  char* const x3 = base + kX3;
+  char* const x4 = base + kX4;
+  char* const img = base + kImg;
+  const float* const prm = reinterpret_cast<const float*>(base + kPrm);
+  const float* const aff = reinterpret_cast<const float*>(base + kAff);
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(base + kBar);
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);  // uniform over the warp
+  const int wt = tid % 128, lane = tid % 32, warp = wt / 32;
+  const int g = lane / 4, q = lane % 4;
+  // the output channels (64 wn..) a warpgroup takes in the skip and pw3: the
+  // third repeats the second's and keeps nothing, so that every warpgroup
+  // runs the same products
+  const int wn = wg < 2 ? wg : 1;
+  const int h2 = p.h / 2, w2 = p.w / 2, h4 = p.h / 4, w4 = p.w / 4;
+
+  // thread 0 issues every copy: the f32 parameters once, the patch and the
+  // weight slots a stage ahead
+  auto load_w = [&](char* slot, int off, int bytes, uint64_t* b) {
+#ifdef ENTRY_NO_WLOAD
+    mbar_arrive(b);
+#else
+    mbar_arrive_expect_tx(b, bytes);
+    bulk_load(slot, p.ops + off, bytes, b);
+#endif
+  };
+  auto load_img = [&](int tile) {
+    const int tx = tile % p.tiles_x, ty = (tile / p.tiles_x) % p.tiles_y;
+    const int n = tile / (p.tiles_x * p.tiles_y);
+#ifdef ENTRY_NO_IMG
+    mbar_arrive(&bar[kBarImg]);
+#else
+    mbar_arrive_expect_tx(&bar[kBarImg], kImgBytes);
+    tma_load_3d(img, &map_x, (4 * kB1Tile * tx - 9) * 3 - kImgLead, 4 * kB1Tile * ty - 9, n,
+                &bar[kBarImg]);
+#endif
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kBars; ++i) mbar_init(&bar[i], i >= kBarTap3 ? 4 : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // the depthwise taps and affines into kPDW1 .. of the parameters, the
+    // products' affines into A0 at kQA1 ..: (offset in pack_weights'
+    // buffer, floats)
+    mbar_arrive_expect_tx(&bar[kBarPrm], (kPrmFloats + kAffFloats) * 4);
+    bulk_load(base + kPrm + 4 * kPDW1, p.prm + kDW1, 4 * 704, &bar[kBarPrm]);
+    bulk_load(base + kPrm + 4 * kPDW2, p.prm + kDW2, 4 * 1408, &bar[kBarPrm]);
+    bulk_load(base + kPrm + 4 * kPDW3, p.prm + kDW3, 4 * 1408, &bar[kBarPrm]);
+    bulk_load(base + kSlot0 + 4 * kQA1, p.prm + kA1, 4 * 64, &bar[kBarPrm]);
+    bulk_load(base + kSlot0 + 4 * kQA2, p.prm + kA2, 4 * 128, &bar[kBarPrm]);
+    bulk_load(base + kSlot0 + 4 * kQP1, p.prm + kAP1, 4 * 256, &bar[kBarPrm]);
+    bulk_load(base + kSlot0 + 4 * kQP2, p.prm + kAP2, 4 * 256, &bar[kBarPrm]);
+    bulk_load(base + kSlot0 + 4 * kQP3, p.prm + kAP3, 4 * 256, &bar[kBarPrm]);
+    bulk_load(base + kSlot0 + 4 * kQS, p.prm + kAS, 4 * 256, &bar[kBarPrm]);
+    load_img(blockIdx.x);
+    load_w(w1, kOpConv1, kOpConv1Bytes, &bar[kBarW1]);
+    load_w(w0, kOpConv2, kOpConv2Bytes, &bar[kBarW0]);
+  }
+  mbar_wait(&bar[kBarPrm], 0);
+  for (int i = tid; i < kAffFloats / 4; i += kWgThreadsB1) {
+    // the products' affines as float4s of channel pairs: float4 i is pair
+    // k of the affine of c channels that starts at float o
+    const int o = 4 * i < kQA2 ? kQA1 : 4 * i < kQP1 ? kQA2 : 4 * i < kQP2 ? kQP1
+                : 4 * i < kQP3 ? kQP2 : 4 * i < kQS ? kQP3 : kQS;
+    const int c = o == kQA1 ? 32 : o == kQA2 ? 64 : 128, k = i - o / 4;
+    const float* a = reinterpret_cast<const float*>(base + kSlot0) + o;
+    reinterpret_cast<float4*>(base + kAff)[i] =
+        make_float4(a[2 * k], a[2 * k + 1], a[c + 2 * k], a[c + 2 * k + 1]);
+  }
+  __syncthreads();
+  int n0 = 0, n1 = 0;  // fills of W0, W1 waited on
+
+  for (int tile = blockIdx.x, k = 0; tile < p.tiles; tile += gridDim.x, ++k) {
+    const int tx = tile % p.tiles_x, ty = (tile / p.tiles_x) % p.tiles_y;
+    const int n = tile / (p.tiles_x * p.tiles_y);
+    const int t0 = kB1Tile * ty, u0 = kB1Tile * tx, R = 2 * t0, C = 2 * u0;
+    const bool more = tile + int(gridDim.x) < p.tiles;
+    // 1/2-resolution pixel (r, c) of a stage with origin org is in the image
+    auto inside = [&](int r, int c, int org) {
+      const int rr = R + org + r, cc = C + org + c;
+      return rr >= 0 && rr < h2 && cc >= 0 && cc < w2;
+    };
+
+    // ---------------------------------------------------------- conv1
+    // M tiles wg, wg + 3, wg + 6 of the 23-wide c1 raster; A from registers,
+    // gathered from the patch: row p = (r, c), k = (ky 3 + kx) 3 + ch at patch
+    // row 2 r + ky, element (2 c + kx) 3 + ch (k >= 27: 0). Rows past 528
+    // repeat 528 and are not stored.
+    mbar_wait(&bar[kBarImg], k & 1);
+    mbar_wait(&bar[kBarW1], n1++ & 1);
+    {
+      const uint16_t* im = reinterpret_cast<const uint16_t*>(img);
+      float d[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) d[i] = 0.f;
+      int off[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = 16 * s + 2 * q + (e & 1) + (e >> 1) * 8;
+          off[s][e] = kk < 27 ? (kk / 9) * kImgElems + ((kk % 9) / 3) * 3 + kk % 3 : -1;
+        }
+#pragma unroll 1
+      for (int i = 0; i < kMT1 / kWGs; ++i) {
+        const int mt = wg + kWGs * i;
+        const int p0 = min(64 * mt + 16 * warp + g, kC1Pix - 1);
+        const int p1 = min(64 * mt + 16 * warp + g + 8, kC1Pix - 1);
+        const int r0 = p0 / kC1W, c0 = p0 - r0 * kC1W, r1 = p1 / kC1W, c1c = p1 - r1 * kC1W;
+        const int b0 = 2 * r0 * kImgElems + 6 * c0 + kImgLead;
+        const int b1 = 2 * r1 * kImgElems + 6 * c1c + kImgLead;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          auto val = [&](int b, int e) { return off[s][e] < 0 ? 0u : uint32_t(im[b + off[s][e]]); };
+          a[s][0] = val(b0, 0) | val(b0, 1) << 16;
+          a[s][1] = val(b1, 0) | val(b1, 1) << 16;
+          a[s][2] = val(b0, 2) | val(b0, 3) << 16;
+          a[s][3] = val(b1, 2) | val(b1, 3) << 16;
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          WG_MMA(Wgmma<32>::rs<0>(d, a[s], kmajor_desc(w1, 32, 0, 16 * s), s));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(d);
+        epilogue<32, true>(d, aff + kQA1, inside(r0, c0, -4), inside(r1, c1c, -4),
+                           [&](int row, int ch) {
+                             const int pp = 64 * mt + row;
+                             return pp < kC1Pix ? c1 + ch * kC1PlaneBytes + pp * 16
+                                                : base + kSlot0 + row * 16;
+                           });
+      }
+    }
+    fence_proxy_async();  // c1 is read by wgmma next
+    __syncthreads();
+    if (tid == 0) load_w(w1, kOpSkip, kOpK64Bytes, &bar[kBarW1]);
+
+    // ---------------------------------------------------------- conv2
+    // M tiles wg, wg + 3, wg + 6 of a raster 23 wide, two in flight: K = 9
+    // taps x 32 channels, tap (dy, dx) the window of c1 from raster row
+    // 64 mt + 23 dy + dx, channels 16 (s % 2).. the planes 2 (s % 2), + 1.
+    mbar_wait(&bar[kBarW0], n0++ & 1);
+    {
+      float e0[32], e1[32];
+      auto chain = [&](float (&d)[32], int mt) {
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 18; ++s) {
+          const int tap = s / 2;
+          const uint64_t da = plain_desc(
+              c1 + 2 * (s % 2) * kC1PlaneBytes + (64 * mt + (tap / 3) * kC1W + tap % 3) * 16,
+              kC1PlaneBytes, 128);
+          const uint64_t db = kmajor_desc(w0, 64, 0, 16 * s);
+          if (s == 0) {
+            WG_MMA(Wgmma<64>::ss0(d, da, db));
+          } else {
+            WG_MMA(Wgmma<64>::ss<0>(d, da, db, 1));
+          }
+        }
+        wgmma_commit();
+      };
+      auto store = [&](const float (&d)[32], int mt) {
+        const int o0 = 64 * mt + 16 * warp + g, o1 = o0 + 8;
+        epilogue<64, true>(d, aff + kQA2, inside(o0 / kC1W, o0 % kC1W, -3),
+                           inside(o1 / kC1W, o1 % kC1W, -3), [&](int row, int ch) {
+                             const int o = 64 * mt + row, r = o / kC1W, c = o - r * kC1W;
+                             const int pix = r * kX2W + c;
+                             return r < kX2W && c < kX2W ? x2 + pix * kX2Px + ch * 16
+                                                         : base + kSlot0 + row * 16;
+                           });
+      };
+      chain(e0, wg);
+      chain(e1, wg + kWGs);
+      wgmma_wait<1>();
+      fence_regs(e0);
+      store(e0, wg);
+      chain(e0, wg + 2 * kWGs);
+      wgmma_wait<1>();
+      fence_regs(e1);
+      store(e1, wg + kWGs);
+      wgmma_wait<0>();
+      fence_regs(e0);
+      store(e0, wg + 2 * kWGs);
+    }
+    __syncthreads();
+    if (tid == 0) load_w(w0, kOpPw1, kOpK64Bytes, &bar[kBarW0]);
+
+    // ----------------------------------------------------------- skip
+    // 1x1 stride 2 on x2 at (2 j + 3, 2 i + 3): A from registers; warpgroup
+    // wg < 2 takes output channels 64 wg..; the result, rounded, waits in
+    // registers (sk) for sep3's epilogue, which has the same fragments.
+    uint32_t sk[16];
+    mbar_wait(&bar[kBarW1], n1++ & 1);
+    {
+      const int rho0 = 16 * warp + g, rho1 = rho0 + 8;
+      const int pix0 = (2 * (rho0 / 8) + 3) * kX2W + 2 * (rho0 % 8) + 3;
+      const int pix1 = (2 * (rho1 / 8) + 3) * kX2W + 2 * (rho1 % 8) + 3;
+      uint32_t a[4][4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        auto at = [&](int pix, int ch) {
+          return *reinterpret_cast<const uint32_t*>(x2 + pix * kX2Px + ch * 16 + 4 * q);
+        };
+        a[s][0] = at(pix0, 2 * s);
+        a[s][1] = at(pix1, 2 * s);
+        a[s][2] = at(pix0, 2 * s + 1);
+        a[s][3] = at(pix1, 2 * s + 1);
+      }
+      float d[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) d[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        WG_MMA(Wgmma<64>::rs<0>(d, a[s], kmajor_desc(w1, 128, 64 * wn, 16 * s), s));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      const float4* ab = reinterpret_cast<const float4*>(aff + kQS) + 32 * wn + q;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 t = ab[4 * j];
+        sk[2 * j] = bf16x2(fmaf(d[4 * j], t.x, t.z), fmaf(d[4 * j + 1], t.y, t.w));
+        sk[2 * j + 1] = bf16x2(fmaf(d[4 * j + 2], t.x, t.z), fmaf(d[4 * j + 3], t.y, t.w));
+      }
+    }
+    __syncthreads();
+    if (tid == 0) load_w(w1, kOpPw2, kOpK128Bytes, &bar[kBarW1]);
+
+    // ---------------------------------------------- sep1, sep2: chunks
+    // Chunk m = wg + 3 i (rows 64 m.. of the output raster), i = 0, 1, of
+    // warpgroup m % 3: its taps into the warpgroup's A tile, its product,
+    // then (once every chunk before it is tapped: its rows overwrite the
+    // stage before) its epilogue into the next stage.
+    auto sep = [&](auto kc, const char* in, char* out, const float* dwp, const float* paff,
+                   const char* wslot, char* at, char* spare, uint64_t* tapped, int total,
+                   int org) {
+      constexpr int CI = decltype(kc)::value;  // input channels: 64 or 128
+      constexpr int WI = CI == 64 ? kX2W : kX3W, WO = CI == 64 ? kX3W : kX4W;
+      float acc[64];
+      static_assert(kMT3 == kMT4, "sep1 and sep2 take as many chunks");
+#pragma unroll 1
+      for (int i = 0; i < kMT3 / kWGs; ++i) {
+        const int m = wg + kWGs * i;
+        taps<CI, 1, WI, WO, 128>(in, at, 64 * m, total, dwp, wt);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&tapped[m]);
+        fence_proxy_async();
+        named_sync(1 + wg, 128);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < CI / 16; ++s) {
+          const uint64_t da = kmajor_desc(at, 64, 0, 16 * s);
+          const uint64_t db = kmajor_desc(wslot, 128, 0, 16 * s);
+          if (s == 0) {
+            WG_MMA(Wgmma<128>::ss0(acc, da, db));
+          } else {
+            WG_MMA(Wgmma<128>::ss<0>(acc, da, db, 1));
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        // the taps of every chunk before this one, whichever warpgroup runs
+        // them, have read the rows of the stage before that its rows overwrite
+        for (int j = max(0, m - kTapWaits); j < m; ++j) mbar_wait(&tapped[j], k & 1);
+        const int o0 = 64 * m + 16 * warp + g, o1 = o0 + 8;
+        epilogue<128, false>(acc, paff, inside(o0 / WO, o0 % WO, org),
+                             inside(o1 / WO, o1 % WO, org), [&](int row, int ch) {
+                               const int o = 64 * m + row;
+                               return o < total ? out + o * kX34Px + ch * 16 : spare + row * 16;
+                             });
+      }
+    };
+    // the A tiles: sep1's 8 KB each in A0 and A1; sep2's A0, A1 and W0 (free
+    // until pw3)
+    mbar_wait(&bar[kBarW0], n0++ & 1);
+    sep(std::integral_constant<int, 64>{}, x2, x3, prm + kPDW1, aff + kQP1, w0,
+        base + kSlot0 + wg * kABox, base + kSlot1 + kABox, &bar[kBarTap3], kX3Pix, -2);
+    __syncthreads();
+    mbar_wait(&bar[kBarW1], n1++ & 1);
+    sep(std::integral_constant<int, 128>{}, x3, x4, prm + kPDW2, aff + kQP2, w1,
+        wg == 2 ? w0 : base + kSlot0 + wg * 2 * kABox, base + kXEnd - 1024, &bar[kBarTap4],
+        kX4Pix, -1);
+    fence_proxy_async();  // x2, x3 and W0 were written here: TMA writes them next
+    __syncthreads();
+    if (tid == 0) {
+      load_w(w0, kOpPw3, kOpK128Bytes, &bar[kBarW0]);
+      if (more) {
+        load_w(w1, kOpConv1, kOpConv1Bytes, &bar[kBarW1]);
+        load_img(tile + int(gridDim.x));
+      }
+    }
+
+    // ----------------------------------------------------------- sep3
+    // The stride-2 taps by all warpgroups into A0, then pw3 (warpgroup wg < 2
+    // its 64 output channels); the affine, plus the skip, rounded once,
+    // staged in A1 and written out in 16-byte vectors.
+    taps<128, 2, kX4W, kB1Tile, kWgThreadsB1>(x4, base + kSlot0, 0, 64, prm + kPDW3, tid);
+    fence_proxy_async();
+    __syncthreads();
+    mbar_wait(&bar[kBarW0], n0++ & 1);
+    {
+      float d[32];
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const uint64_t da = kmajor_desc(base + kSlot0, 64, 0, 16 * s);
+        const uint64_t db = kmajor_desc(w0, 128, 64 * wn, 16 * s);
+        if (s == 0) {
+          WG_MMA(Wgmma<64>::ss0(d, da, db));
+        } else {
+          WG_MMA(Wgmma<64>::ss<0>(d, da, db, 1));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+#ifndef ENTRY_NO_EPI
+      if (wg < 2) {
+        const float4* ab = reinterpret_cast<const float4*>(aff + kQP3) + 32 * wg + q;
+        const int mi = lane / 8, row = 16 * warp + (mi & 1) * 8 + lane % 8;
+        char* stage = base + kSlot1 + wg * kABox;
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          uint32_t r[4];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int jj = j + hh;
+            const float4 t = ab[4 * jj];
+            // pw3's result rounded to bf16, plus the skip's, rounded once more
+            const float v0 = __bfloat162float(__float2bfloat16_rn(fmaf(d[4 * jj], t.x, t.z)));
+            const float v1 = __bfloat162float(__float2bfloat16_rn(fmaf(d[4 * jj + 1], t.y, t.w)));
+            const float v2 = __bfloat162float(__float2bfloat16_rn(fmaf(d[4 * jj + 2], t.x, t.z)));
+            const float v3 = __bfloat162float(__float2bfloat16_rn(fmaf(d[4 * jj + 3], t.y, t.w)));
+            r[2 * hh] = bf16x2(v0 + bf_lo(sk[2 * jj]), v1 + bf_hi(sk[2 * jj]));
+            r[2 * hh + 1] = bf16x2(v2 + bf_lo(sk[2 * jj + 1]), v3 + bf_hi(sk[2 * jj + 1]));
+          }
+          const int ch = j + (mi >> 1);
+          stmatrix_x4(stage + row * 128 + ((ch ^ (row & 7)) << 4), r[0], r[1], r[2], r[3]);
+        }
+      }
+#endif
+    }
+    __syncthreads();
+#ifndef ENTRY_NO_EPI
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      const int idx = tid + kWgThreadsB1 * e, rho = idx / 16, c16 = idx % 16;
+      const int r = t0 + rho / 8, c = u0 + rho % 8;
+      if (idx < 64 * 16 && r < h4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(base + kSlot1 + (c16 / 8) * kABox +
+                                                        rho * 128 + (((c16 % 8) ^ (rho & 7)) << 4));
+        *reinterpret_cast<uint4*>(p.y + ((size_t(n) * h4 + r) * w4 + c) * 128 + c16 * 8) = v;
+      }
+    }
+#endif
+    __syncthreads();
+    if (tid == 0 && more) load_w(w0, kOpConv2, kOpConv2Bytes, &bar[kBarW0]);
+  }
+}
+
+// The gate of ops/entrychain.py::stem_block1_supported.
+bool block1_supported(int h, int w) {
+  return h % 4 == 0 && w % 64 == 0 && (h / 4) % 4 == 0 && h / 4 >= 8;
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// The image as a 3-D map (n, h, w * 3) of bf16: boxes of 47 rows x 152
+// elements (48 pixels and 5 elements before them), unswizzled, zeros past
+// every edge (conv1's padding).
+bool encode_image(CUtensorMap* map, const void* x, int n, int h, int w) {
+  auto fn = encode_fn();
+  if (!fn) return false;
+  cuuint64_t dims[3] = {cuuint64_t(w) * 3, cuuint64_t(h), cuuint64_t(n)};
+  cuuint64_t strides[2] = {cuuint64_t(w) * 6, cuuint64_t(w) * 6 * cuuint64_t(h)};
+  cuuint32_t box[3] = {kImgElems, kImgRows, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+B1Args block1_args(const void* x, void* y, const void* prm, const void* ops, int n, int h,
+                   int w) {
+  B1Args a;
+  a.prm = static_cast<const float*>(prm);
+  a.ops = static_cast<const char*>(ops);
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.h = h;
+  a.w = w;
+  a.tiles_x = w / 4 / kB1Tile;
+  a.tiles_y = (h / 4 + kB1Tile - 1) / kB1Tile;
+  a.tiles = a.tiles_x * a.tiles_y * n;
+  return a;
+}
+
+int launch_block1_wgmma(const void* x, void* y, const void* prm, const void* ops, int n, int h,
+                        int w, cudaStream_t stream) {
+  if (n < 1 || !block1_supported(h, w)) return -1;
+  CUtensorMap map;
+  if (!encode_image(&map, x, n, h, w)) return -3;
+  const B1Args a = block1_args(x, y, prm, ops, n, h, w);
+  cudaError_t err = cudaFuncSetAttribute(stem_block1_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kB1WgSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stem_block1_wgmma_kernel<<<std::min(sm_count(), a.tiles), kWgThreadsB1, kB1WgSmem, stream>>>(map, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_stem(const void* x, void* y, const float* prm, int n, int h, int w,
                 cudaStream_t stream) {
@@ -520,6 +1249,10 @@ extern "C" {
 // Number of floats in the packed parameter buffer of each entry.
 int entry_param_count(int block1) { return block1 ? kBlock1End : kStemEnd; }
 
+// Number of bf16 elements in the operand buffer the bf16 stem + block1
+// reads beside it (ops/entrychain.py::pack_operands).
+int entry_operand_count() { return kOpBytes / 2; }
+
 // x (n,h,w,3) -> y (n,h/2,w/2,64); bf16 != 0 selects bfloat16 I/O, else f32.
 int entry_stem(const void* x, void* y, const void* prm, int n, int h, int w,
                int bf16, void* stream) {
@@ -529,13 +1262,39 @@ int entry_stem(const void* x, void* y, const void* prm, int n, int h, int w,
               : launch_stem<float>(x, y, p, n, h, w, s);
 }
 
-// x (n,h,w,3) -> y (n,h/4,w/4,128)
-int entry_stem_block1(const void* x, void* y, const void* prm, int n, int h,
+// x (n,h,w,3) -> y (n,h/4,w/4,128). bf16 != 0: bfloat16 I/O by
+// stem_block1_wgmma_kernel, prm the f32 buffer (affines, depthwise taps), ops
+// the bf16 operands (-1 outside the gate, -3 when the image's tensor map
+// cannot be made); else f32 I/O by the first version, which reads prm alone.
+int entry_stem_block1(const void* x, void* y, const void* prm, const void* ops, int n, int h,
                       int w, int bf16, void* stream) {
-  const float* p = static_cast<const float*>(prm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_stem_block1<__nv_bfloat16>(x, y, p, n, h, w, s)
-              : launch_stem_block1<float>(x, y, p, n, h, w, s);
+  return bf16 ? launch_block1_wgmma(x, y, prm, ops, n, h, w, s)
+              : launch_stem_block1<float>(x, y, static_cast<const float*>(prm), n, h, w, s);
+}
+
+// stem_block1_wgmma_kernel's plan for a (n, h, w, 3) image (sms <= 0: the
+// current device's SM count), 47 ints as ops/entrychain.py::plan_ints
+// orders them: tile rows, columns; tiles across, down, images; grid;
+// threads; shared memory bytes; (offset, bytes) of W0, W1, A0, A1, c1, x4,
+// x3, x2, the patch, the f32 depthwise parameters, the mbarriers, the
+// affines as float4s; rows and columns of
+// c1, x2, x3, x4; M tiles of conv1, conv2, the skip, pw1, pw2, pw3; the
+// chunks before it whose taps a chunk's epilogue waits for (kTapWaits).
+// Returns -1 outside the gate.
+int entry_plan(int n, int h, int w, int sms, int* out) {
+  if (n < 1 || !block1_supported(h, w)) return -1;
+  const B1Args a = block1_args(nullptr, nullptr, nullptr, nullptr, n, h, w);
+  const int v[47] = {kB1Tile, kB1Tile, a.tiles_x, a.tiles_y, n,
+                     std::min(sms > 0 ? sms : sm_count(), a.tiles), kWgThreadsB1, kB1WgSmem,
+                     kW0, kW1 - kW0, kW1, kSlot0 - kW1, kSlot0, kSlot1 - kSlot0, kSlot1, kX - kSlot1,
+                     kC1, 4 * kC1PlaneBytes, kX4, kX4Pix * kX34Px, kX3, kX3Pix * kX34Px,
+                     kX2, kX2Pix * kX2Px, kImg, kImgBytes, kPrm, kPrmFloats * 4, kBar, kBars * 8,
+                     kAff, kAffFloats * 4,
+                     kC1W, kC1W, kX2W, kX2W, kX3W, kX3W, kX4W, kX4W,
+                     kMT1, kMT2, 1, kMT3, kMT4, 1, kTapWaits};
+  for (int i = 0; i < 47; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -18,12 +18,24 @@ pointwise ``(1,1,C,C')``) with BN already folded into f32 affines
 Bound on one H100 at 1024x2048, per image: stem+block1 does ~27.3 G MAC
 (~54.5 GFLOP) and moves ~46 MB in bf16, so it is bound by operations
 (~55 us at the dense bf16 tensor-core peak); the stem does ~10.1 G MAC
-and moves ~80 MB, so it is bound by bytes. The kernels' design (one
-thread block per output tile, every stage in shared memory, halos
-recomputed; in bf16 the convs on the tensor cores, the depthwise convs
-on the CUDA cores; in f32 all on the CUDA cores) is described in the
-source. It is far from those bounds: its stages run one after the other
-within a tile, each short and latency-bound.
+and moves ~80 MB, so it is bound by bytes.
+
+Two designs share the source. ``fused_stem_block1`` in bf16 takes
+``stem_block1_wgmma_kernel``: persistent blocks, one an SM, each walking
+output tiles of 8 x 8 pixels at 1/4 resolution; the products (conv1,
+conv2, the skip, the three pointwise convs) on ``wgmma`` with f32 sums,
+their B operands read once a tile and stage as bf16 by TMA from the
+buffer ``pack_operands`` writes (128-byte-swizzled K-major boxes), the
+image patch by a TMA tile load, the depthwise taps on the CUDA cores;
+every stage of a tile stays in shared memory, stages that are read and
+written at once overlapping where the reads have moved on
+(``entry_plan`` gives the tile, the grid and every region; the source's
+header the whole design). On an NVIDIA H100 80GB HBM3 at 700.00 W it
+takes 0.4279 ms at (1, 1024, 2048, 3), 7.8x its bound, the depthwise taps
+on the CUDA cores, the epilogues and the stages run one after the other
+setting the pace (``chip_smoke.py --entry-probe``). The stem, and f32 I/O of both, keep the
+first version (one block a tile, ``mma.sync`` in bf16, CUDA-core FMA in
+f32).
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes
 the plain PyTorch version (``*_plain``, the same stages as ``F.conv2d``
@@ -41,11 +53,14 @@ import torch.nn.functional as F
 from .kernels import library
 
 __all__ = [
+    "entry_plan",
+    "kernel_entry_plan",
     "fused_stem",
     "fused_stem_plain",
     "stem_supported",
     "fused_stem_block1",
     "fused_stem_block1_plain",
+    "pack_operands",
     "pack_weights",
     "stem_block1_supported",
 ]
@@ -75,6 +90,116 @@ def stem_block1_supported(h: int, w: int, c: int, strip: int = 4) -> bool:
         and (h // 4) % strip == 0
         and h // 4 >= 2 * strip
     )
+
+
+# ------------------------------------------------------- the wgmma kernel's plan
+# Mirror of csrc/entrychain.cu's constants for stem_block1_wgmma_kernel
+# (``entry_plan`` there; chip_smoke.py holds the two equal on the card).
+H100_SMS = 132
+TILE = 8  # output pixels a side of a tile, at 1/4 resolution
+# Stage extents (rows, columns) of a tile, at 1/2 resolution, and their
+# origins relative to (2 t0, 2 u0), the tile's corner there: c1 (conv1),
+# x2 (conv2), x3 (sep1), x4 (sep2); conv2 runs over a raster as wide as
+# c1, so that a tap is a shift of its rows.
+EXTENTS = {"c1": (23, 23), "x2": (21, 21), "x3": (19, 19), "x4": (17, 17)}
+ORIGINS = {"c1": -4, "x2": -3, "x3": -2, "x4": -1}
+# the image patch: rows, bf16 elements a row (48 pixels from 4 u0 - 9 and the
+# 5 elements before them: TMA starts a row only at a 16-byte-aligned element)
+IMAGE_BOX = (47, 152)
+# bytes a pixel of x2, x3, x4 in shared memory: the channels and 16 (so that
+# eight rows stored at one channel offset fall in eight bank groups)
+PIXEL_BYTES = {"x2": 64 * 2 + 16, "x3": 128 * 2 + 16, "x4": 128 * 2 + 16}
+C1_PLANE_PIXELS = 560  # c1 pixels of a channel plane: 529 and the kept rows' shifted reads
+# 64-row M tiles of each product (those the three warpgroups split by rows
+# rounded up to a multiple of 3, so that each takes as many)
+WARPGROUPS = 3
+M_TILES = {"conv1": 9, "conv2": 9, "skip": 1, "pw1": 6, "pw2": 6, "pw3": 1}
+# sep1's and sep2's chunk m (64 rows of the stage it writes) writes its rows
+# once the taps of chunks m - TAP_WAITS .. m - 1 are done: every chunk before
+# it, whichever warpgroup runs it
+TAP_WAITS = M_TILES["pw1"] - 1
+# B operands of pack_operands: (name, N, K padded to 64) in the buffer's order
+OPERANDS = (("conv1", 32, 64), ("conv2", 64, 320), ("skip", 128, 64), ("pw1", 128, 64),
+            ("pw2", 128, 128), ("pw3", 128, 128))
+SMEM_LIMIT = 232448
+
+
+def _regions():
+    """Byte (offset, size) of each shared-memory region, from the block's
+    1024-byte-aligned base: two weight slots, two A slots, the stage area
+    X (c1 and x4 at its start, x3 1904 bytes in, x2 36352 bytes after x3 to
+    X's end, the image patch past x4), the f32 depthwise taps and affines,
+    the mbarriers, and the products' affines as float4s of channel pairs."""
+    w0, w1, a = 40960, 32768, 16384
+    x = w0 + w1 + 2 * a
+    x3 = x + 1904
+    x2 = x3 + 36352
+    prm = x2 + 21 * 21 * PIXEL_BYTES["x2"]
+    return {
+        "w0": (0, w0), "w1": (w0, w1), "a0": (w0 + w1, a), "a1": (w0 + w1 + a, a),
+        "c1": (x, 4 * C1_PLANE_PIXELS * 16), "x4": (x, 17 * 17 * PIXEL_BYTES["x4"]),
+        "x3": (x3, 19 * 19 * PIXEL_BYTES["x3"]), "x2": (x2, 21 * 21 * PIXEL_BYTES["x2"]),
+        "img": (x + 78720, IMAGE_BOX[0] * IMAGE_BOX[1] * 2),
+        "prm": (prm, 3520 * 4), "bar": (prm + 3520 * 4, 16 * 8),
+        "aff": (prm + 3520 * 4 + 16 * 8, 1216 * 4),
+    }
+
+
+def entry_plan(n: int, h: int, w: int, sms: int = H100_SMS) -> dict:
+    """What ``stem_block1_wgmma_kernel`` runs for a (n, h, w, 3) bf16
+    image: ``tile`` (output rows, columns at 1/4 resolution), ``tiles``
+    (across, down, images), ``grid`` (persistent blocks, one an SM at
+    most), ``threads``, ``smem`` (dynamic bytes, 1 KB alignment slack
+    included), ``regions`` (``_regions``), ``extents``, ``m_tiles``,
+    ``tap_waits`` (``TAP_WAITS``).
+    Raises ValueError outside ``stem_block1_supported``."""
+    if n < 1 or not stem_block1_supported(h, w, 3):
+        raise ValueError(f"entry_plan: no kernel takes ({n}, {h}, {w}, 3)")
+    tiles = (w // 4 // TILE, -(-(h // 4) // TILE), n)
+    regions = _regions()
+    end = max(off + size for off, size in regions.values())
+    return dict(tile=(TILE, TILE), tiles=tiles, grid=min(sms, tiles[0] * tiles[1] * n),
+                threads=128 * WARPGROUPS, smem=end + 1024, regions=regions, extents=dict(EXTENTS),
+                m_tiles=dict(M_TILES), tap_waits=TAP_WAITS)
+
+
+def plan_ints(plan: dict) -> list:
+    """``plan`` flattened in the order of the source's ``entry_plan``."""
+    order = ("w0", "w1", "a0", "a1", "c1", "x4", "x3", "x2", "img", "prm", "bar", "aff")
+    return [*plan["tile"], *plan["tiles"], plan["grid"], plan["threads"], plan["smem"],
+            *(v for k in order for v in plan["regions"][k]),
+            *(v for k in ("c1", "x2", "x3", "x4") for v in plan["extents"][k]),
+            *(plan["m_tiles"][k] for k in ("conv1", "conv2", "skip", "pw1", "pw2", "pw3")),
+            plan["tap_waits"]]
+
+
+def _swizzled(b, k_pad):
+    """The B operand of a product with weights ``b`` (K, N) as wgmma reads
+    it K-major: N rows of K bf16, K zero-padded to ``k_pad``, in boxes of 64
+    columns ([N][64], 128 bytes a row); in each box the 16-byte chunk c of
+    row r lies at chunk c ^ (r % 8) (the 128-byte swizzle)."""
+    k, n = b.shape
+    bt = torch.zeros(n, k_pad, dtype=b.dtype, device=b.device)
+    bt[:, :k] = b.t()
+    boxes = bt.view(n, k_pad // 64, 8, 8).permute(1, 0, 2, 3)
+    rows = torch.arange(n, device=b.device)[:, None]
+    out = torch.empty_like(boxes)
+    out[:, rows, torch.arange(8, device=b.device)[None, :] ^ (rows % 8)] = boxes
+    return out.reshape(-1)
+
+
+def pack_operands(x, stem_p, sep_p, skip_p):
+    """The bf16 B operands of ``stem_block1_wgmma_kernel``'s products on
+    ``x``'s device, each rounded to bf16 (the plain version's casts), in
+    the order and layout of ``OPERANDS``: conv1 (K = 27 taps, ky kx ci,
+    padded to 64), conv2 (K = 288 = 9 taps x 32 channels, padded to 320),
+    the skip, pw1, pw2, pw3. The kernel copies each into a weight slot as
+    it is. A caller packs once per weight set (``packed=``)."""
+    k1, k2 = stem_p[0], stem_p[3]
+    mats = (k1.reshape(27, 32), k2.reshape(288, 64), skip_p[0].reshape(64, 128),
+            *(p[3].reshape(p[3].shape[2], p[3].shape[3]) for p in sep_p))
+    return torch.cat([_swizzled(m.to(x.device, torch.bfloat16), kp)
+                      for m, (_, _, kp) in zip(mats, OPERANDS)])
 
 
 # ------------------------------------------------------------ plain versions
@@ -123,15 +248,36 @@ def fused_stem_block1_plain(x, stem_p, sep_p, skip_p):
 
 
 # ------------------------------------------------------------------ kernels
+_counts = {}  # id of a loaded library -> (its param counts, its operand count)
+
+
 def _lib():
     lib = library("entrychain")
+    if id(lib) in _counts:
+        return lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.entry_stem, lib.entry_stem_block1):
-        fn.argtypes = [p, p, p, i, i, i, i, p]
-        fn.restype = i
+    lib.entry_stem.argtypes = [p, p, p, i, i, i, i, p]
+    lib.entry_stem_block1.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.entry_stem.restype = lib.entry_stem_block1.restype = i
     lib.entry_param_count.argtypes = [i]
     lib.entry_param_count.restype = i
+    lib.entry_operand_count.argtypes = []
+    lib.entry_operand_count.restype = i
+    lib.entry_plan.argtypes = [i, i, i, i, p]
+    lib.entry_plan.restype = i
+    _counts[id(lib)] = ((lib.entry_param_count(0), lib.entry_param_count(1)),
+                        lib.entry_operand_count())
     return lib
+
+
+def kernel_entry_plan(n, h, w, sms=0):
+    """``entry_plan`` as the compiled source reports it (needs ``nvcc``),
+    flattened as ``plan_ints``; ``sms`` <= 0: the current device's."""
+    out = (ctypes.c_int * 47)()
+    rc = _lib().entry_plan(n, h, w, sms, out)
+    if rc != 0:
+        raise ValueError(f"entry_plan: rc {rc}")
+    return list(out)
 
 
 def pack_weights(x, stem_p, sep_p=(), skip_p=()):
@@ -172,20 +318,30 @@ def _check(x, name, mult):
         raise ValueError(f"{name}: input must be contiguous NHWC")
 
 
-def _launch(entry, block1, x, prm, out):
+def _launch(entry, block1, x, prm, out, ops=None):
+    """Launch ``entry`` on ``x`` with the f32 buffer ``prm`` and, for the
+    bf16 stem + block1, the operand buffer ``ops``."""
     if prm.device != x.device or prm.dtype != torch.float32:
         raise ValueError(f"packed weights: {prm.dtype} on {prm.device}, input on {x.device}")
     lib = _lib()
-    want = lib.entry_param_count(int(block1))
+    params, operands = _counts[id(lib)]
+    want = params[int(block1)]
     if prm.numel() != want:
         raise ValueError(f"packed parameters: {prm.numel()} floats, kernel reads {want}")
     n, h, w, _ = x.shape
+    wgmma = block1 and x.dtype == torch.bfloat16
+    if wgmma:
+        if not stem_block1_supported(h, w, 3):
+            raise ValueError(f"{entry}: ({n}, {h}, {w}, 3) is outside the kernel's gate")
+        if (ops is None or ops.device != x.device or ops.dtype != torch.bfloat16
+                or ops.numel() != operands):
+            raise ValueError(f"packed operands: want {operands} bf16 on {x.device}")
+    bufs = (x.data_ptr(), out.data_ptr(), prm.data_ptr())
+    if block1:
+        bufs += (ops.data_ptr() if wgmma else None,)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, entry)(
-            x.data_ptr(), out.data_ptr(), prm.data_ptr(), n, h, w,
-            int(x.dtype == torch.bfloat16), stream,
-        )
+        rc = getattr(lib, entry)(*bufs, n, h, w, int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc}")
 
@@ -211,15 +367,19 @@ def fused_stem_block1(x, stem_p, sep_p, skip_p, packed=None):
     ``stem_p`` = (k1, a1, b1, k2, a2, b2); ``sep_p`` = three tuples
     (dw (3,3,1,C), a_dw, b_dw, pw (1,1,C,C'), a_pw, b_pw); ``skip_p`` =
     (wsk (1,1,64,128), a, b); ``packed``: their ``pack_weights`` buffer
-    for ``x``, or None."""
+    for ``x``, or the pair (that buffer, their ``pack_operands`` buffer),
+    or None. bf16 reads both; given the first alone it packs the second."""
     if x.device.type == "cpu":
         return fused_stem_block1_plain(x, stem_p, sep_p, skip_p)
     _check(x, "fused_stem_block1", 4)
     n, h, w, _ = x.shape
     out = torch.empty((n, h // 4, w // 4, 128), dtype=x.dtype, device=x.device)
-    if packed is None:
-        packed = pack_weights(x, stem_p, sep_p, skip_p)
-    _launch("entry_stem_block1", True, x, packed, out)
+    prm, ops = packed if isinstance(packed, tuple) else (packed, None)
+    if prm is None:
+        prm = pack_weights(x, stem_p, sep_p, skip_p)
+    if ops is None and x.dtype == torch.bfloat16:
+        ops = pack_operands(x, stem_p, sep_p, skip_p)
+    _launch("entry_stem_block1", True, x, prm, out, ops)
     fused_stem_block1.launches += 1
     return out
 

@@ -7,6 +7,7 @@ loaded with ``ctypes``. The hash is of the source and of the headers it
 includes from ``csrc/`` (``#include "<name>.cuh"``), so an edited source or
 header is rebuilt. Nothing is built or loaded at import time. ``DEFINES`` maps a
 source to extra compiler flags (a probe build); they enter the hash.
+``build_variants`` builds one source with several sets of flags at once.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
-__all__ = ["DEFINES", "SOURCES", "build", "library"]
+__all__ = ["DEFINES", "SOURCES", "build", "build_variants", "library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
@@ -52,8 +53,10 @@ def _headers(source: bytes) -> bytes:
     return b"".join((_SRC / n.decode()).read_bytes() for n in names)
 
 
-def _target(name: str) -> Path:
-    flags = " ".join(DEFINES.get(name, ())).encode()
+def _target(name: str, flags: Sequence[str] | None = None) -> Path:
+    """The library of ``csrc/<name>.cu`` built with ``flags`` (None: its
+    ``DEFINES``)."""
+    flags = " ".join(DEFINES.get(name, ()) if flags is None else flags).encode()
     source = (_SRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(source + _headers(source) + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -65,27 +68,41 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     (0.0 for one already built); raises with the compiler's output when
     a build fails. The compiler's report (``-Xptxas -v``: registers,
     shared memory, spills) is kept beside each library as ``.log``."""
+    return _build({name: (name, tuple(DEFINES.get(name, ()))) for name in names})
+
+
+def build_variants(name: str, variants: Dict[str, Tuple[str, ...]]) -> Dict[str, Path]:
+    """The libraries of ``csrc/<name>.cu`` built with each set of flags in
+    ``variants`` (probe builds), compiled as ``build`` compiles, all at
+    once: {variant: library path}, each with its ``.log`` beside it."""
+    _build({v: (name, flags) for v, flags in variants.items()})
+    return {v: _target(name, flags) for v, flags in variants.items()}
+
+
+def _build(jobs: Dict[str, Tuple[str, Tuple[str, ...]]]) -> Dict[str, float]:
+    """Compile each job (source, flags) that has no library yet, all
+    started together; seconds per job."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     times = {}
-    for name in names:
-        out = _target(name)
+    for key, (name, flags) in jobs.items():
+        out = _target(name, flags)
         if out.exists():
-            times[name] = 0.0
+            times[key] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, *DEFINES.get(name, ()), "-o", str(tmp),
-               str(_SRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
+        cmd = [_nvcc(), *_NVCC_FLAGS, *flags, "-o", str(tmp), str(_SRC / f"{name}.cu")]
+        procs[key] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for key, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
+        times[key] = time.perf_counter() - t0
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            name, flags = jobs[key]
+            failed.append(f"nvcc failed for {' '.join((f'{name}.cu', *flags))}:\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     if failed:
