@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--kernels-only | --probe | --probe-dot
-                           | --entry [--baseline=<path>] | --entry-probe
+                           | --entry [--baseline=<path>] | --entry-probe[=stem|block1]
                            | --sepconv [--baseline=<path>] | --sepconv-probe
                            | --flash-fwd [--baseline=<path>] | --flash-fwd-probe
                            | --flash-bwd [--baseline=<path>]
@@ -19,11 +19,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    at the shapes the full-width model gives it, in f32 (TF32 off) and
    bf16, with the stated tolerances; times by CUDA events (median of 20
    after warm-up) beside the bound the card sets for the same work. The
-   entry chain at (1, 1024, 2048, 3), before it ``csrc/entrychain.cu``'s
-   ptxas report, the SASS of ``stem_block1_wgmma_kernel`` (HGMMA and
-   UTMALDG required) and its plan (``entry_plan``) against
-   ``ops/entrychain.py::entry_plan`` (``check_entry_build``,
-   ``check_entry_plans``); the fused separable conv
+   entry chain at (1, 1024, 2048, 3) and, in bf16, at small images (one
+   tile, ragged tile rows or columns, two images; ``entry_small_cases``),
+   before it ``csrc/entrychain.cu``'s ptxas report, the SASS of
+   ``stem_block1_wgmma_kernel`` (HGMMA and UTMALDG required) and of
+   ``stem_wgmma_kernel`` (HGMMA, UTMALDG and UTMASTG required; no spill,
+   no ptxas wgmma-serialisation warning) and their plans (``entry_plan``,
+   ``stem_plan``) against ``ops/entrychain.py``'s mirrors
+   (``check_entry_build``, ``check_entry_plans``); the fused separable conv
    (``ops/sepconv.py``, four entry points) at the flagship's layers: a
    728-channel middle-flow layer with dilation 2 and its sum-skip block
    end (output stride 8, ``int8_dot``), the stride-2 conv-skip end of
@@ -88,10 +91,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    before it and read after it: the default configuration, path A and
    path B, the counts held to what the port's gates admit for the
    layers' shapes; the ``TPU.FUSED_STEM="stem"`` route's launches;
-   forward times of A, B and their unfused twins in turns; each bf16
-   route's argmax against its f32 reference, no further from it than
-   its unfused twin; profiler breakdowns of one forward of the default
-   path and of path B (written to ``OUT_DIR``);
+   forward times of the default entry, the "stem" route and the plain
+   modules' entry in turns, and of A, B and their unfused twins in
+   turns; each bf16 route's argmax against its f32 reference, no
+   further from it than its unfused twin; profiler breakdowns of one
+   forward of the default path and of path B (written to ``OUT_DIR``);
 6. DANet and OCNet over ResNet-101 at output stride 8, from their
    serving YAMLs on the bf16 path (``TPU.INT8_RESNET False``), full
    width, random weights with PAM's and CAM's ``gamma`` set to
@@ -142,18 +146,18 @@ case's bar. ``--sepconv-probe`` times the wgmma kernel's probe builds
 (``SEPCONV_BUILDS``: a phase left out, wrong results, times only) in
 turns at the bf16 stride-1 main cases and block ends.
 ``--entry`` neither: the rehearsal after an edit of
-``csrc/entrychain.cu``. It builds that source alone, prints ptxas's
-registers and spills and the bf16 kernel's SASS counts (HGMMA and UTMALDG
-required), holds the source's ``entry_plan`` to the mirror, checks the bf16
-stem + block1 at three small images (each pixel's error printed as a
-grid), runs phase 3's entry checks (both kernels, both dtypes, the bars
-unchanged), times the library route (cuDNN convs and elementwise affines,
-channels-last bf16), and with ``--baseline=<path>`` times another
-``entrychain.cu`` (the first version's C interface) against this one at (1, 1024, 2048,
-3) in bf16 and f32 in turns (old, new, new, old; launch shown, launch
-hidden, host µs a call), with max|old - new| and each against the plain
-version. ``--entry-probe`` times the bf16 kernel's probe builds
-(``ENTRY_BUILDS``: a part left out, wrong results, times only) in turns.
+``csrc/entrychain.cu``. It builds that source alone, runs the build and
+plan checks above, checks the bf16 stem + block1 and the bf16 stem at small
+images (each pixel's error printed as a grid), runs phase 3's entry checks
+(both entries, both dtypes, the bars unchanged), times the library route
+of each (cuDNN convs and elementwise affines, channels-last bf16), and
+with ``--baseline=<path>`` times another ``entrychain.cu`` (PR 15's C
+interface) against this one at (1, 1024, 2048, 3) in turns (old, new,
+new, old; launch shown, launch hidden, host µs a call): the stem in bf16
+and f32, stem + block1 in bf16, with max|old - new| and each against the
+plain version. ``--entry-probe`` times the bf16 kernels' probe builds
+(``STEM_BUILDS``, ``ENTRY_BUILDS``: a part left out, wrong results, times
+only) in turns; ``=stem`` or ``=block1`` takes one kernel.
 ``--probe-dot`` neither: it times ``csrc/probe_dot.cu`` and its probe
 builds, each with a phase left out, at the probe's two shapes, and prints
 the median phase stamps of a traced launch.
@@ -320,7 +324,7 @@ def check_entry_kernels(torch, entrychain, card, dev, gen):
     x32 = torch.randn(SHAPE, generator=gen).to(dev)
     kernels = {
         "fused_stem_block1": dict(
-            block1=True, wrapper=entrychain.fused_stem_block1,
+            block1=True, wrapper=entrychain.fused_stem_block1, wgmma="stem_block1_wgmma_kernel",
             plain=lambda x: entrychain.fused_stem_block1_plain(x, stem_p, sep_p, skip_p),
             kernel=lambda x: entrychain.fused_stem_block1(x, stem_p, sep_p, skip_p),
             launch=("entry_stem_block1", (stem_p, sep_p, skip_p)),
@@ -328,7 +332,7 @@ def check_entry_kernels(torch, entrychain, card, dev, gen):
                      "fused_stem_block1 :509, pallas_call :583)",
         ),
         "fused_stem": dict(
-            block1=False, wrapper=entrychain.fused_stem,
+            block1=False, wrapper=entrychain.fused_stem, wgmma="stem_wgmma_kernel",
             plain=lambda x: entrychain.fused_stem_plain(x, *stem_p),
             kernel=lambda x: entrychain.fused_stem(x, *stem_p),
             launch=("entry_stem", (stem_p,)),
@@ -356,8 +360,7 @@ def check_entry_kernels(torch, entrychain, card, dev, gen):
             # time the kernel alone (weights packed once, no counter)
             entry, groups = k["launch"]
             packed = entrychain.pack_weights(x, *groups)
-            ops = (entrychain.pack_operands(x, *groups)
-                   if k["block1"] and dt == torch.bfloat16 else None)
+            ops = entrychain.pack_operands(x, *groups) if dt == torch.bfloat16 else None
             out = torch.empty_like(got)
 
             def launch():
@@ -374,13 +377,19 @@ def check_entry_kernels(torch, entrychain, card, dev, gen):
             if not ok:
                 fail(f"{name} {dname} disagrees with its plain version")
             k[dname] = dict(max_abs_err=max_err, ms=kernel_ms, ms_launch_hidden=hidden_ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            kernel=k["wgmma"] if dt == torch.bfloat16 else
+                            ("stem_block1_kernel<f32>" if k["block1"] else "stem_kernel<f32>"))
     return kernels
 
 
 # The image shapes whose plans the source and the mirror must agree on: the
 # flagship's, two images, a ragged last tile row (H/4 = 260), one tile tall.
 ENTRY_PLAN_SHAPES = [(1, 1024, 2048), (2, 1024, 2048), (1, 1040, 2048), (1, 32, 64)]
+# and the stem's: the flagship's, two images, H/2 = 520 (65 tile rows), the
+# smallest image, a last tile column of 18 and of 2 pixels (W/2 = 80, 64)
+STEM_PLAN_SHAPES = [(1, 1024, 2048), (2, 1024, 2048), (1, 1040, 2048), (1, 32, 32),
+                    (1, 48, 160), (2, 64, 128)]
 
 
 def check_entry_plans(entrychain, card):
@@ -398,26 +407,53 @@ def check_entry_plans(entrychain, card):
             fail(f"entry_plan differs from the source's at ({n}, {h}, {w}, 3)")
         if src[7] > 232448:
             fail(f"entry_plan: {src[7]} bytes of shared memory")
+    for n, h, w in STEM_PLAN_SHAPES:
+        src = entrychain.kernel_stem_plan(n, h, w)
+        mirror = entrychain.stem_plan_ints(entrychain.stem_plan(n, h, w, sms=sms))
+        print(f"{card} stem plan ({n}, {h}, {w}, 3): {src}"
+              + ("" if src == mirror else f" (mirror {mirror})"))
+        if src != mirror:
+            fail(f"stem_plan differs from the source's at ({n}, {h}, {w}, 3)")
+        if src[8] > 232448:
+            fail(f"stem_plan: {src[8]} bytes of shared memory")
 
 
 def check_entry_build(card):
     """ptxas's report of ``csrc/entrychain.cu`` (registers and spills of
-    every kernel, its warnings) and the SASS of ``stem_block1_wgmma_kernel``,
-    which must hold HGMMA (wgmma) and UTMALDG (the patch's TMA tile load)."""
+    every kernel, its warnings) and the SASS of the bf16 kernels:
+    ``stem_block1_wgmma_kernel`` must hold HGMMA (wgmma) and UTMALDG (the
+    patch's TMA tile load), ``stem_wgmma_kernel`` those and UTMASTG (its
+    TMA stores), and neither spill nor draw a ptxas wgmma-serialisation
+    warning (C7510-C7520)."""
+    import re
+
+    from segmentron_tpu_torch.ops.kernels import _target
+
     print_ptxas(card, "entrychain")
     spills = ptxas_spills("entrychain", r"kernel")
     print(f"{card} ptxas entrychain spills (stores, loads): {spills}")
-    counts = print_sass_mix(card, "entrychain", r"stem_block1_wgmma_kernel", top=14)
+    log = _target("entrychain").with_suffix(".log").read_text()
+    serial = [ln.strip() for ln in log.splitlines()
+              if re.search(r"C75(1\d|20)", ln) and "stem_wgmma_kernel" in ln]
+    if serial:
+        fail("ptxas serialises wgmma in stem_wgmma_kernel:\n" + "\n".join(serial))
+    stem_spills = [v for k, v in spills.items() if "stem_wgmma_kernel" in k]
+    if len(stem_spills) != 1 or any(stem_spills[0]):
+        fail(f"stem_wgmma_kernel spills, or is missing: {stem_spills}")
+    counts = print_sass_mix(card, "entrychain", r"stem(_block1)?_wgmma_kernel", top=14)
     if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
-        fail("stem_block1_wgmma_kernel lacks HGMMA or UTMALDG instructions")
+        fail("a bf16 entry kernel lacks HGMMA or UTMALDG instructions")
+    if not any("stem_wgmma_kernel" in k and c["UTMASTG"] > 0 for k, c in counts.items()):
+        fail("stem_wgmma_kernel lacks UTMASTG instructions")
     return spills
 
 
-def entry_library(torch, x, stem_p, sep_p, skip_p):
-    """The library route of stem + block1 on ``x`` (NHWC), for timing only:
-    PyTorch's own calls on channels-last tensors of x's dtype, F.conv2d
-    (cuDNN) for conv1, conv2, the depthwise convs (groups) and the 1x1s, the
-    affines (and ReLUs) elementwise. Returns a function giving NHWC."""
+def entry_library(torch, x, stem_p, sep_p=None, skip_p=None):
+    """The library route of stem + block1 (of the stem alone without
+    ``sep_p``) on ``x`` (NHWC), for timing only: PyTorch's own calls on
+    channels-last tensors of x's dtype, F.conv2d (cuDNN) for conv1, conv2,
+    the depthwise convs (groups) and the 1x1s, the affines (and ReLUs)
+    elementwise. Returns a function giving NHWC."""
     import torch.nn.functional as F
 
     dt = x.dtype
@@ -430,14 +466,16 @@ def entry_library(torch, x, stem_p, sep_p, skip_p):
 
     k1, a1, b1, k2, a2, b2 = stem_p
     stem = [(wt(k1), *ab(a1, b1)), (wt(k2), *ab(a2, b2))]
-    seps = [((wt(p[0]), *ab(p[1], p[2])), (wt(p[3]), *ab(p[4], p[5]))) for p in sep_p]
-    skip = (wt(skip_p[0]), *ab(skip_p[1], skip_p[2]))
+    seps = [((wt(p[0]), *ab(p[1], p[2])), (wt(p[3]), *ab(p[4], p[5]))) for p in sep_p or ()]
+    skip = (wt(skip_p[0]), *ab(skip_p[1], skip_p[2])) if sep_p else None
 
     def run():
         y = x.permute(0, 3, 1, 2)
         (w1, s1, c1), (w2, s2, c2) = stem
         y = torch.relu(F.conv2d(y, w1, stride=2, padding=1) * s1 + c1)
         y = inp = torch.relu(F.conv2d(y, w2, padding=1) * s2 + c2)
+        if skip is None:
+            return y.permute(0, 2, 3, 1)
         for i, ((dw, sd, cd), (pw, sp, cp)) in enumerate(seps):
             y = F.conv2d(y, dw, stride=2 if i == 2 else 1, padding=1, groups=y.shape[1]) * sd + cd
             y = F.conv2d(y, pw) * sp + cp
@@ -447,47 +485,54 @@ def entry_library(torch, x, stem_p, sep_p, skip_p):
 
 
 def baseline_entry_lib(path):
-    """The library of another ``entrychain.cu`` at ``path`` (the first version's C
-    interface: ``entry_stem_block1`` in both dtypes)."""
+    """The library of another ``entrychain.cu`` at ``path``, with PR 15's C
+    interface: ``entry_stem(x, y, prm, n, h, w, bf16, stream)`` (no
+    operands: its stem is the first version) and ``entry_stem_block1(x, y,
+    prm, ops, n, h, w, bf16, stream)``."""
     import ctypes
 
     lib = baseline_lib(path, "entrychain")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.entry_stem_block1.argtypes = [p, p, p, i, i, i, i, p]
-    lib.entry_stem_block1.restype = i
+    lib.entry_stem.argtypes = [p, p, p, i, i, i, i, p]
+    lib.entry_stem_block1.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.entry_stem.restype = lib.entry_stem_block1.restype = i
     return lib
 
 
 def compare_entry(torch, entrychain, card, dev, gen, path):
-    """At (1, 1024, 2048, 3) in bf16 and f32, the baseline source ``path``
-    (another ``entrychain.cu``) and this one on the same image and weights
-    in turns old, new, new, old: each turn the median of 20 with the launch
-    not hidden, hidden behind a spin of the card, and the host's
-    microseconds a call; max|old - new| and each against the plain version
-    (phase 3's bars). Returns {dtype: {"old": [ms, ms], "new": ..., ...}}."""
+    """At (1, 1024, 2048, 3), the baseline source ``path`` (another
+    ``entrychain.cu``, PR 15's interface) and this one on the same image and
+    weights in turns old, new, new, old: the stem in bf16 and f32, stem +
+    block1 in bf16; each turn the median of 20 with the launch not hidden,
+    hidden behind a spin of the card, and the host's microseconds a call;
+    max|old - new| and each against the plain version (phase 3's bars).
+    Returns {"<entry> <dtype>": {"old": [ms, ms], "new": ..., ...}}."""
     old_lib, new_lib = baseline_entry_lib(path), entrychain._lib()
     stem_p, sep_p, skip_p = entry_params(torch, gen, dev)
     x32 = torch.randn(SHAPE, generator=gen).to(dev)
     n, h, w, _ = SHAPE
     stream = torch.cuda.current_stream().cuda_stream
     results = {}
-    for dt in (torch.bfloat16, torch.float32):
+    for entry, dt in (("entry_stem", torch.bfloat16), ("entry_stem", torch.float32),
+                      ("entry_stem_block1", torch.bfloat16)):
         dname = dtype_name(dt)
+        block1 = entry == "entry_stem_block1"
+        groups = (stem_p, sep_p, skip_p) if block1 else (stem_p,)
         x = x32.to(dt)
-        prm = entrychain.pack_weights(x, stem_p, sep_p, skip_p)
-        ops = entrychain.pack_operands(x, stem_p, sep_p, skip_p)
-        outs = {v: torch.empty((n, h // 4, w // 4, 128), dtype=dt, device=dev)
+        prm = entrychain.pack_weights(x, *groups)
+        ops = entrychain.pack_operands(x, *groups)
+        stride, cout = (4, 128) if block1 else (2, 64)
+        outs = {v: torch.empty((n, h // stride, w // stride, cout), dtype=dt, device=dev)
                 for v in ("old", "new")}
 
         def run(ver):
-            y = outs[ver]
-            bufs = (x.data_ptr(), y.data_ptr(), prm.data_ptr())
-            if ver == "new":  # this source reads the operands beside the f32 buffer
+            bufs = (x.data_ptr(), outs[ver].data_ptr(), prm.data_ptr())
+            if ver == "new" or block1:  # the old stem reads no operands
                 bufs += (ops.data_ptr(),)
             lib = old_lib if ver == "old" else new_lib
-            rc = lib.entry_stem_block1(*bufs, n, h, w, int(dt == torch.bfloat16), stream)
+            rc = getattr(lib, entry)(*bufs, n, h, w, int(dt == torch.bfloat16), stream)
             if rc != 0:
-                fail(f"{ver} entry_stem_block1 {dname}: error {rc}")
+                fail(f"{ver} {entry} {dname}: error {rc}")
 
         times = {k: [] for k in ("old", "new", "old_hidden", "new_hidden", "old_host_us",
                                  "new_host_us")}
@@ -496,7 +541,8 @@ def compare_entry(torch, entrychain, card, dev, gen, path):
             times[ver + "_hidden"].append(median_ms(torch, lambda: run(ver), hide_launch=True))
             times[ver + "_host_us"].append(host_us(torch, lambda: run(ver)))
         torch.cuda.synchronize()
-        ref = entrychain.fused_stem_block1_plain(x, stem_p, sep_p, skip_p).float()
+        ref = (entrychain.fused_stem_block1_plain(x, *groups) if block1
+               else entrychain.fused_stem_plain(x, *stem_p)).float()
         errs = {}
         for ver, y in outs.items():
             e = (y.float() - ref).abs()
@@ -506,7 +552,7 @@ def compare_entry(torch, entrychain, card, dev, gen, path):
 
         def turns(key, fmt):
             return " ".join(f"{t:{fmt}}" for t in times[key])
-        print(f"{card} entry stem_block1 {dname} {SHAPE}: baseline {path} against this source, "
+        print(f"{card} {entry} {dname} {SHAPE}: baseline {path} against this source, "
               f"old/new/new/old: old {turns('old', '.4f')} ms, new {turns('new', '.4f')} ms, "
               f"old / new {mean['old'] / mean['new']:.2f}; launch hidden: old "
               f"{turns('old_hidden', '.4f')} ms, new {turns('new_hidden', '.4f')} ms, old / new "
@@ -516,35 +562,46 @@ def compare_entry(torch, entrychain, card, dev, gen, path):
               f"max|ref| {ref.abs().max().item():.6g}, mean|ref| {ref.abs().mean().item():.6g}): "
               f"old {errs['old'][0]:.6g} {errs['old'][1]:.6g}, new {errs['new'][0]:.6g} "
               f"{errs['new'][1]:.6g}")
-        results[dname] = dict(times, max_old_new=diff, err_old=errs["old"], err_new=errs["new"])
+        results[f"{entry} {dname}"] = dict(times, max_old_new=diff, err_old=errs["old"],
+                                           err_new=errs["new"])
         del x, prm, ops, outs, ref
         torch.cuda.empty_cache()
     return results
 
 
 def entry_small_cases(torch, entrychain, card, dev, gen):
-    """The bf16 stem + block1 at small images (one tile tall, a ragged tile
-    row, two images) against the plain version, each output pixel's largest
-    error over its channels printed as a grid for the first image: where a
-    halo or an edge goes wrong shows as whole rows or columns. Returns the
-    cases that miss phase 3's bf16 bar."""
+    """The bf16 stem + block1 and the bf16 stem at small images against the
+    plain version, each output pixel's largest error over its channels
+    printed as a grid for the first image: where a halo or an edge goes
+    wrong shows as whole rows or columns. Stem + block1: one tile tall, a
+    ragged tile row, two images; the stem: the smallest image, a ragged
+    last tile column of 18 pixels, one of 2 pixels and two images, and
+    three tile columns. Returns the cases that miss phase 3's bf16 bar."""
     stem_p, sep_p, skip_p = entry_params(torch, gen, dev)
+    groups = (stem_p, sep_p, skip_p)
+    cases = [("stem_block1", shape, lambda x: entrychain.fused_stem_block1(x, *groups),
+              lambda x: entrychain.fused_stem_block1_plain(x, *groups))
+             for shape in [(1, 32, 64), (1, 48, 128), (2, 64, 128)]]
+    cases += [("stem", shape, lambda x: entrychain.fused_stem(x, *stem_p),
+               lambda x: entrychain.fused_stem_plain(x, *stem_p))
+              for shape in [(1, 32, 32), (1, 48, 160), (2, 64, 128), (1, 32, 256)]]
     bad = []
-    for n, h, w in [(1, 32, 64), (1, 48, 128), (2, 64, 128)]:
+    for name, (n, h, w), kernel, plain in cases:
         x = torch.randn(n, h, w, 3, generator=gen).to(dev, torch.bfloat16)
-        got = entrychain.fused_stem_block1(x, stem_p, sep_p, skip_p).float()
-        ref = entrychain.fused_stem_block1_plain(x, stem_p, sep_p, skip_p).float()
+        got = kernel(x).float()
+        ref = plain(x).float()
         torch.cuda.synchronize()
         err = (got - ref).abs()
-        ok = (err.max().item() <= 3e-2 * ref.abs().max().item()
+        ok = (bool(torch.isfinite(got).all())
+              and err.max().item() <= 3e-2 * ref.abs().max().item()
               and err.mean().item() <= 2e-3 * ref.abs().mean().item())
         grid = err[0].amax(-1) / ref.abs().max()
-        print(f"{card} entry stem_block1 bfloat16 ({n}, {h}, {w}, 3): max|err| "
+        print(f"{card} entry {name} bfloat16 ({n}, {h}, {w}, 3): max|err| "
               f"{err.max().item():.6g} (max|ref| {ref.abs().max().item():.6g}), mean|err| "
               f"{err.mean().item():.6g} [{'ok' if ok else 'FAIL'}]; per pixel, x100 of max|ref|:\n"
               + "\n".join(" ".join(f"{100 * v:3.0f}" for v in row) for row in grid.tolist()))
         if not ok:
-            bad.append((n, h, w))
+            bad.append((name, n, h, w))
     return bad
 
 
@@ -565,23 +622,30 @@ def entry_only(torch, entrychain, card):
     dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
     bad = entry_small_cases(torch, entrychain, card, dev, gen)
     if bad:
-        fail(f"stem_block1_wgmma_kernel disagrees with its plain version at {bad}")
+        fail(f"a bf16 entry kernel disagrees with its plain version at {bad}")
     kernels = check_entry_kernels(torch, entrychain, card, dev, gen)
     results["kernels"] = {name: {d: k[d] for d in ("float32", "bfloat16")}
                           for name, k in kernels.items()}
     stem_p, sep_p, skip_p = entry_params(torch, gen, dev)
     x = torch.randn(SHAPE, generator=gen).to(dev, torch.bfloat16)
-    lib_fn = entry_library(torch, x, stem_p, sep_p, skip_p)
-    with torch.inference_mode():
-        got = lib_fn().float()
-        ref = entrychain.fused_stem_block1_plain(x, stem_p, sep_p, skip_p).float()
-        lib_ms = median_ms(torch, lib_fn)
-        lib_hidden = median_ms(torch, lib_fn, hide_launch=True)
-    print(f"{card} entry stem_block1 library route bfloat16 {SHAPE} (cuDNN convs, the affines "
-          f"elementwise): {lib_ms:.4f} ms ({lib_hidden:.4f} launch hidden); max|err| against "
-          f"the plain version {(got - ref).abs().max().item():.6g} (max|ref| "
-          f"{ref.abs().max().item():.6g})")
-    results["library_route"] = dict(ms=lib_ms, ms_launch_hidden=lib_hidden)
+    routes = {
+        "stem_block1": (entry_library(torch, x, stem_p, sep_p, skip_p),
+                        lambda: entrychain.fused_stem_block1_plain(x, stem_p, sep_p, skip_p)),
+        "stem": (entry_library(torch, x, stem_p),
+                 lambda: entrychain.fused_stem_plain(x, *stem_p)),
+    }
+    results["library_route"] = {}
+    for name, (lib_fn, plain) in routes.items():
+        with torch.inference_mode():
+            got = lib_fn().float()
+            ref = plain().float()
+            lib_ms = median_ms(torch, lib_fn)
+            lib_hidden = median_ms(torch, lib_fn, hide_launch=True)
+        print(f"{card} entry {name} library route bfloat16 {SHAPE} (cuDNN convs, the affines "
+              f"elementwise): {lib_ms:.4f} ms ({lib_hidden:.4f} launch hidden); max|err| against "
+              f"the plain version {(got - ref).abs().max().item():.6g} (max|ref| "
+              f"{ref.abs().max().item():.6g})")
+        results["library_route"][name] = dict(ms=lib_ms, ms_launch_hidden=lib_hidden)
     for arg in sys.argv[1:]:
         if arg.startswith("--baseline="):
             results["baseline"] = compare_entry(torch, entrychain, card, dev, gen,
@@ -603,33 +667,62 @@ ENTRY_BUILDS = {
 }
 
 
+# Probe builds of csrc/entrychain.cu (--entry-probe): a part of
+# stem_wgmma_kernel left out, wrong results, times only.
+STEM_BUILDS = {
+    "full": (),
+    "no products": ("-DSTEM_NO_MMA",),
+    "no epilogues": ("-DSTEM_NO_EPI",),
+    "no stores": ("-DSTEM_NO_STORE",),
+    "no patch loads": ("-DSTEM_NO_IMG",),
+    "no products, epilogues, stores": ("-DSTEM_NO_MMA", "-DSTEM_NO_EPI", "-DSTEM_NO_STORE"),
+}
+
+
 def entry_probe(torch, entrychain, card):
-    """``--entry-probe``: ``stem_block1_wgmma_kernel`` and its probe builds
-    (``ENTRY_BUILDS``, built in parallel) at (1, 1024, 2048, 3) bf16, timed
-    in turns (each build, then each again in reverse order; median of 20,
-    launches hidden), with ptxas's registers and spills of each."""
+    """``--entry-probe[=stem|block1]``: the bf16 kernels and their probe
+    builds (``STEM_BUILDS`` for ``stem_wgmma_kernel``, ``ENTRY_BUILDS`` for
+    ``stem_block1_wgmma_kernel``; both without a choice), built in
+    parallel, at (1, 1024, 2048, 3), timed in turns (each build, then each
+    again in reverse order; median of 20, launches hidden), with ptxas's
+    registers and spills of each."""
     from segmentron_tpu_torch.ops import kernels
 
-    loaded = probe_libs(card, "entrychain", ENTRY_BUILDS, entrychain._lib,
-                        ptxas=r"stem_block1_wgmma_kernel")
+    which = next((a.partition("=")[2] for a in sys.argv[1:] if a.startswith("--entry-probe=")),
+                 "")
+    tables = {"stem": (STEM_BUILDS, False, "stem_wgmma_kernel"),
+              "block1": (ENTRY_BUILDS, True, "stem_block1_wgmma_kernel")}
+    if which:
+        tables = {which: tables[which]}
+    builds = {}
+    for name, (table, _, _) in tables.items():
+        builds.update({f"{name} {b}" if b != "full" else "full": f for b, f in table.items()})
+    loaded = probe_libs(card, "entrychain", builds, entrychain._lib,
+                        ptxas=r"stem(_block1)?_wgmma_kernel")
     dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
     stem_p, sep_p, skip_p = entry_params(torch, gen, dev)
     x = torch.randn(SHAPE, generator=gen).to(dev, torch.bfloat16)
-    packed = (entrychain.pack_weights(x, stem_p, sep_p, skip_p),
-              entrychain.pack_operands(x, stem_p, sep_p, skip_p))
-    out = torch.empty((1, SHAPE[1] // 4, SHAPE[2] // 4, 128), dtype=x.dtype, device=dev)
-    times = {}
-    for name in [*loaded, *reversed(loaded)]:
-        kernels._loaded["entrychain"] = loaded[name]
-        times.setdefault(name, []).append(median_ms(
-            torch, lambda: entrychain._launch("entry_stem_block1", True, x, packed[0], out,
-                                              packed[1]), hide_launch=True))
-    torch.cuda.synchronize()
-    kernels._loaded["entrychain"] = loaded["full"]
-    print(f"{card} stem_block1_wgmma_kernel bfloat16 {SHAPE} probe builds, ms (in turns, launch "
-          "hidden): " + "; ".join(f"{b} {' '.join(f'{t:.4f}' for t in v)}"
-                                  for b, v in times.items()))
-    print(json.dumps({"times": times}))
+    results = {}
+    for name, (table, block1, kernel) in tables.items():
+        groups = (stem_p, sep_p, skip_p) if block1 else (stem_p,)
+        packed = (entrychain.pack_weights(x, *groups), entrychain.pack_operands(x, *groups))
+        stride, cout = (4, 128) if block1 else (2, 64)
+        out = torch.empty((1, SHAPE[1] // stride, SHAPE[2] // stride, cout), dtype=x.dtype,
+                          device=dev)
+        entry = "entry_stem_block1" if block1 else "entry_stem"
+        names = [f"{name} {b}" if b != "full" else "full" for b in table]
+        times = {}
+        for b in [*names, *reversed(names)]:
+            kernels._loaded["entrychain"] = loaded[b]
+            times.setdefault(b, []).append(median_ms(
+                torch, lambda: entrychain._launch(entry, block1, x, packed[0], out, packed[1]),
+                hide_launch=True))
+        torch.cuda.synchronize()
+        kernels._loaded["entrychain"] = loaded["full"]
+        print(f"{card} {kernel} bfloat16 {SHAPE} probe builds, ms (in turns, launch hidden): "
+              + "; ".join(f"{b} {' '.join(f'{t:.4f}' for t in v)}" for b, v in times.items()))
+        results[name] = times
+    print(json.dumps({"times": results}))
     return 0
 
 
@@ -1903,7 +1996,9 @@ def print_sass_mix(card, name, kernels_re, top=14):
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T] )?([A-Z][A-Z0-9_]*)", part))
         short = re.search(r"((?:dq|dkv|flash)_(?:f32|bf16)_kernel)(?:ILi(\d+)ELi(\d+)E)?", fn)
         sep = re.search(r"(sepconv_wgmma_kernel)ILi(\d)ELi(\d+)ELi(\d)ELi(\d)E", fn)
-        label = (f"{sep.group(1)}<{'s8' if sep.group(2) == '1' else 'bf16'}, N {sep.group(3)}, "
+        ent = re.search(r"stem(?:_block1)?_wgmma_kernel", fn)
+        label = (ent.group(0) if ent else
+                 f"{sep.group(1)}<{'s8' if sep.group(2) == '1' else 'bf16'}, N {sep.group(3)}, "
                  f"d {sep.group(4)}, {('no skip', 'conv skip', 'sum skip')[int(sep.group(5))]}>"
                  if sep else f"{short.group(1)}<{short.group(2)}, {short.group(3)}>"
                  if short and short.group(2) else short.group(1) if short else fn[:60])
@@ -2647,7 +2742,8 @@ def print_ptxas(card, name, log=None, only=None):
             sep = re.search(r"\d(sepconv_(?:wgmma_|resident_)?kernel)I(\w+?)EEv", ln)
             mb = re.search(r"\d((?:dq|dkv|flash)_(?:f32|bf16)_kernel)ILi(\d+)E(?:Li(\d+)E)?",
                            ln)
-            ent = re.search(r"\d((?:stem_block1_wgmma|stem_block1|stem)_kernel)(?:I(\w+?)E)?", ln)
+            ent = re.search(r"\d((?:stem_block1_wgmma|stem_block1|stem_wgmma|stem)_kernel)"
+                            r"(?:I(\w+?)E)?", ln)
             if ent:  # the entry kernels: <f> f32, <13__nv_bfloat16> bf16
                 fn = ent.group(1) + (f"<{'f32' if ent.group(2) == 'f' else 'bf16'}>"
                                      if ent.group(2) else "")
@@ -2948,7 +3044,7 @@ def main():
         return sepconv_only(torch, sepconv, card)
     if "--entry" in sys.argv[1:]:
         return entry_only(torch, entrychain, card)
-    if "--entry-probe" in sys.argv[1:]:
+    if any(a.startswith("--entry-probe") for a in sys.argv[1:]):
         return entry_probe(torch, entrychain, card)
     if "--sepconv-probe" in sys.argv[1:]:
         return sepconv_probe(torch, sepconv, card)
@@ -3023,6 +3119,9 @@ def main():
         print(f"kernels only: {time.perf_counter() - t_start:.1f} s")
         return 0
     entry_kernels = check_entry_kernels(torch, entrychain, card, dev, gen)
+    bad = entry_small_cases(torch, entrychain, card, dev, gen)
+    if bad:
+        fail(f"a bf16 entry kernel disagrees with its plain version at {bad}")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 4. model
@@ -3204,10 +3303,10 @@ def main():
                 fail(f"logits shape {tuple(lg.shape)}")
             if not torch.isfinite(lg).all():
                 fail("non-finite logits")
-        # the fused and the plain-modules entry in turns, 3 rounds of 10
-        fwd = {"block1": [], False: []}
+        # the fused entry routes and the plain-modules entry in turns, 3 rounds of 10
+        fwd = {route: [] for route in routes}
         for rnd in range(3):
-            for route in (("block1", False) if rnd % 2 == 0 else (False, "block1")):
+            for route in (routes if rnd % 2 == 0 else routes[::-1]):
                 bb.fused_stem = route
                 fwd[route].append(median_ms(torch, lambda: predict(image), n=10, warmup=2))
         bb.fused_stem = cfg.TPU.FUSED_STEM
@@ -3224,6 +3323,7 @@ def main():
         set_routes(model, routes_plain)
         set_routes(model8, routes_b)
     fwd_ms, plain_fwd_ms = statistics.median(fwd["block1"]), statistics.median(fwd[False])
+    stem_fwd_ms = statistics.median(fwd["stem"])
     path_ms = {name: statistics.median(v) for name, v in fwd_paths.items()}
     print(f"{card} forward (1, {SHAPE[1]}, {SHAPE[2]}, 3) uint8 -> f32 logits, bf16, ms "
           f"(img/s), medians of rounds in turns: " + "; ".join(
@@ -3241,9 +3341,10 @@ def main():
     # plain modules' own bf16 route is.
     agree16 = {str(r): agreement(half[r], ref[False]) for r in (*routes, "A")}
     print(f"{card} forward, {cfg.TPU.COMPUTE_DTYPE}: fused entry {fwd_ms:.3f} ms "
-          f"({1e3 / fwd_ms:.2f} img/s), plain modules entry {plain_fwd_ms:.3f} ms "
-          f"({1e3 / plain_fwd_ms:.2f} img/s) [medians of rounds {fwd['block1']} and "
-          f"{fwd[False]}]; argmax agreement with the f32 plain "
+          f"({1e3 / fwd_ms:.2f} img/s), the FUSED_STEM=\"stem\" route {stem_fwd_ms:.3f} ms "
+          f"({1e3 / stem_fwd_ms:.2f} img/s), plain modules entry {plain_fwd_ms:.3f} ms "
+          f"({1e3 / plain_fwd_ms:.2f} img/s) [medians of rounds {fwd['block1']}, "
+          f"{fwd['stem']} and {fwd[False]}]; argmax agreement with the f32 plain "
           f"reference per bf16 route {agree16}; bf16 fused vs bf16 plain: block1 "
           f"{agreement(half['block1'], half[False]):.6f}, stem "
           f"{agreement(half['stem'], half[False]):.6f}, A "
@@ -3382,7 +3483,8 @@ def main():
         for name, (source, replaces, m) in measured.items()
     ]}
     summary = {"card": smi, "forward_ms": fwd_ms, "img_per_s": 1e3 / fwd_ms,
-               "plain_entry_forward_ms": plain_fwd_ms, "path_forward_ms": path_ms,
+               "plain_entry_forward_ms": plain_fwd_ms, "stem_route_forward_ms": stem_fwd_ms,
+               "path_forward_ms": path_ms,
                "argmax_agreement_f32": agree32, "argmax_agreement_bf16_vs_f32": agree16,
                "path_b_argmax_agreement_with_f32": {"f32": agree8_32, "bf16": agree8_16},
                "eval": {"default": main_default, "A": main_a, "B": main_b},

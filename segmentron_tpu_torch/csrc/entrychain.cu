@@ -14,7 +14,40 @@
 //
 // Bound on an H100: stem+block1 at 1024x2048 does ~27.3 G MAC per image and
 // moves ~46 MB (bf16), so it is bound by operations (0.0552 ms at the dense
-// bf16 peak); the stem alone (~10.1 G MAC, ~80 MB) is bound by bytes.
+// bf16 peak); the stem alone (~10.1 G MAC, 12.6 MB in and 67.1 MB out in
+// bf16) is bound by bytes (0.0238 ms; f32: by operations, 0.302 ms on the
+// CUDA cores).
+//
+// The stem in bf16: stem_wgmma_kernel. Its output, written once, is its
+// bound, so it is built to keep the stores in flight under the products.
+// Persistent blocks, one an SM, of four warpgroups walk output tiles of 8
+// rows x 62 columns at 1/2 resolution (1,088 tiles at 1024x2048, 8 or 9 a
+// block). conv2 runs over a raster 64 wide (columns 62, 63 of each row
+// spare), so that each c1 raster row is one 64-row M tile of conv1 and each
+// tap of conv2 a descriptor 16 (64 dy + dx) bytes on (no im2col). Two
+// producer warpgroups run conv1 (wgmma m64n32k16, A gathered into registers
+// from the image patch, K 27 -> 32; five M tiles each, three then two in
+// flight) into one of two c1 buffers (four planes of 8 channels, no
+// swizzle) while two consumer warpgroups run conv2 on the other. conv2 is
+// transposed, M the 64 output channels: D (64 x 128 pixels) = W2^T (A: the
+// weights as pack_operands lays out conv2's B) . c1 windows (B, K-major),
+// 18 k-steps of wgmma m64n128k16 a chain, four chains (two output rows
+// each) a tile. A warpgroup's wgmma issue waits on the tensor cores, so a
+// consumer cannot run its epilogue under its own chain: the consumers take
+// turns (named barriers), one's epilogue under the other's chain. The
+// epilogue (affine, ReLU, bf16) stores by stmatrix.trans into the chain's
+// staging slot (128-byte swizzle) and one thread sends each output row by a
+// TMA store (62 pixels; TMA clips the ragged last tile column), waiting on
+// cp.async.bulk.wait_group.read only before the slot is written again, a
+// tile later. The patch (21 image rows x 400 elements) is a TMA box of the
+// image seen as (n, h, 3 w / 8, 8), so every tile's box starts 16-byte
+// aligned; it loads two tiles ahead. Shared memory: 230,200 of 232,448
+// bytes a block (ops/entrychain.py::stem_plan mirrors the regions).
+// On an NVIDIA H100 80GB HBM3 at 700.00 W it takes 0.0472 ms at (1, 1024,
+// 2048, 3), 0.0440 with the launch hidden: 5.3x the first version in turns
+// and 1.8x its bound (chip_smoke.py --entry --baseline). Shared memory,
+// read by the products and written and read by the gather, the epilogues
+// and the stores, sets the pace (chip_smoke.py --entry-probe).
 //
 // stem + block1 in bf16: stem_block1_wgmma_kernel. Persistent blocks, one an
 // SM, of three warpgroups, walk output tiles of 8 x 8 pixels at 1/4
@@ -60,14 +93,11 @@
 // 0.438): the taps on the CUDA cores and the epilogues, in stages that run
 // one after the other between barriers.
 //
-// The stem (both types) and stem + block1 in f32: the first version. One
-// thread block per output tile builds the tile's receptive field stage by
-// stage in shared memory (image patch -> conv1 -> conv2 -> sep1 -> sep2 ->
-// sep3 + skip), recomputing the halos. In bf16 the convs that are matrix
-// products run on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate); the depthwise convs are f32 FMA on the CUDA cores. In f32
-// every stage is f32 FMA. Its stages run one after the other between
-// barriers, each short and latency-bound.
+// f32 I/O of both entries: the first version. One thread block per output
+// tile builds the tile's receptive field stage by stage in shared memory
+// (image patch -> conv1 -> conv2 -> sep1 -> sep2 -> sep3 + skip),
+// recomputing the halos, every stage f32 FMA on the CUDA cores; its stages
+// run one after the other between barriers, each short and latency-bound.
 //
 // Zero padding: every stage's values at positions outside the image are set
 // to 0 before the next 3x3 reads them (rows and columns, both edges).
@@ -75,7 +105,9 @@
 // Probe builds (chip_smoke.py --entry-probe; wrong results, times only):
 // -DENTRY_NO_TAPS, _NO_MMA, _NO_EPI, _NO_WLOAD, _NO_IMG leave the depthwise
 // taps, the products, the epilogues, the weight loads or the patch loads out
-// of stem_block1_wgmma_kernel.
+// of stem_block1_wgmma_kernel; -DSTEM_NO_MMA, _NO_EPI, _NO_STORE, _NO_IMG
+// the products, the epilogues, the TMA stores or the patch loads out of
+// stem_wgmma_kernel.
 //
 // C interface: each entry returns cudaGetLastError() after its launch.
 
@@ -91,7 +123,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 // Packed f32 parameter buffer, in this order (ops/entrychain.py::_pack):
 // conv weights HWIO, depthwise (3,3,C), pointwise (Cin,Cout), affines (C,).
@@ -126,23 +157,17 @@ constexpr int kAS = kWSK + 8192;
 constexpr int kBS = kAS + 128;
 constexpr int kBlock1End = kBS + 128;
 
-// Shared-memory stages are HWC with each pixel's C channels padded to C + 8
-// elements: 16-byte aligned rows for ldmatrix, and consecutive pixels land on
-// different bank groups.
+// The first version's shared-memory stages are HWC with each pixel's C
+// channels padded to C + 8 elements: consecutive pixels land on different
+// bank groups.
 template <int C> constexpr int kLd = C + 8;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 template <typename T> __device__ __forceinline__ T cvt(float v);
 template <> __device__ __forceinline__ float cvt<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 // v rounded to T (the cast the plain version makes between stages)
 template <typename T> __device__ __forceinline__ float rnd(float v) {
   const T t = cvt<T>(v);
@@ -259,131 +284,6 @@ __device__ void dw_stage(const T* in, int in_w, int out_h, int out_w,
   }
 }
 
-// ---------------------------------------------------------- tensor cores
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The product of fma_stage on the tensor cores (bf16 tiles in shared
-// memory): an implicit GEMM of M = out_h*out_w pixels, K = KS*KS*CI, N = OC;
-// weight rows from KV on read as 0.
-// Warps split N into groups of NT n8-tiles and M into the rest; each warp
-// keeps its B fragments (weights, exact in bf16) in registers for the whole
-// stage and walks its m16 tiles, gathering A rows (im2col) with ldmatrix.
-// Sums go to epi(p, oc, v, 2) for two consecutive channels.
-template <int CI, int OC, int KS, int S, int LDI, int NT, int KV = KS * KS * CI,
-          typename Epi>
-__device__ void mma_stage(const __nv_bfloat16* in, int in_w, int out_h, int out_w,
-                          const float* __restrict__ w, const Epi& epi) {
-  constexpr int K = KS * KS * CI;
-  constexpr int kSteps = K / 16;
-  constexpr int kNGroups = OC / (8 * NT);
-  constexpr int kMGroups = kWarps / kNGroups;
-  static_assert(CI % 16 == 0 && LDI % 8 == 0, "ldmatrix rows need 16 channels, 16 B");
-  static_assert(kNGroups * kMGroups == kWarps, "warps must tile N");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int n0 = (warp % kNGroups) * NT * 8;
-  const int mg = warp / kNGroups;
-
-  uint32_t bfrag[kSteps][NT][2];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int k0 = ks * 16 + tig * 2;
-      const float* wp = w + k0 * OC + n0 + j * 8 + g;
-      auto wk = [&](int dk) { return k0 + dk < KV ? __ldg(wp + dk * OC) : 0.f; };
-      bfrag[ks][j][0] = pack_bf16x2(wk(0), wk(1));
-      bfrag[ks][j][1] = pack_bf16x2(wk(8), wk(9));
-    }
-
-  const int P = out_h * out_w;
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix: row of A
-  const int lk = (lane >> 4) * 8;                       // and its k offset
-  for (int m0 = mg * 16; m0 < P; m0 += kMGroups * 16) {
-    const int p = min(m0 + lrow, P - 1);
-    const int r = p / out_w, c = p - r * out_w;
-    const __nv_bfloat16* arow = in + (r * S * in_w + c * S) * LDI + lk;
-    float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      const int tap = ks * 16 / CI, ci0 = ks * 16 % CI;
-      uint32_t a[4];
-      ldmatrix_x4(a, arow + ((tap / KS) * in_w + tap % KS) * LDI + ci0);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_bf16(acc[j], a, bfrag[ks][j][0], bfrag[ks][j][1]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int oc = n0 + j * 8 + tig * 2;
-      if (m0 + g < P) epi(m0 + g, oc, &acc[j][0], 2);
-      if (m0 + g + 8 < P) epi(m0 + g + 8, oc, &acc[j][2], 2);
-    }
-  }
-}
-
-// A matrix-product stage: tensor cores for bf16 (NT n8-tiles a warp), CUDA
-// cores for f32 (PT pixels a thread).
-template <int CI, int OC, int KS, int S, int LDI, int NT, int PT, typename T, typename Epi>
-__device__ void gemm_stage(const T* in, int in_w, int out_h, int out_w,
-                           const float* __restrict__ w, const Epi& epi) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    mma_stage<CI, OC, KS, S, LDI, NT>(in, in_w, out_h, out_w, w, epi);
-  else
-    fma_stage<CI, OC, KS, S, LDI, PT>(in, in_w, out_h, out_w, w, epi);
-}
-
-// conv1, 3x3 stride 2 over the 3-channel image patch (pixel stride 3,
-// img_w pixels a row) to out_h x out_w pixels. bf16: im2col of the 27 taps
-// (zero-padded to K = 32) into ``scratch`` (out_h*out_w rows of kLd<32>),
-// then the tensor cores; f32: FMA straight from the patch.
-template <typename T, typename Epi>
-__device__ void conv1_stage(const T* img, int img_w, int out_h, int out_w, T* scratch,
-                            const float* __restrict__ w, const Epi& epi) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr int LD = kLd<32>;
-    const int P = out_h * out_w;
-    // one unit per (pixel, tap row dy): the 9 taps k = 9*dy .. 9*dy+8 are
-    // the 3 pixels x 3 channels of image row 2r+dy from column 2c on
-    for (int u = threadIdx.x; u < P * 3; u += kThreads) {
-      const int p = u / 3, dy = u - p * 3;
-      const int r = p / out_w, c = p - r * out_w;
-      const T* src = img + ((2 * r + dy) * img_w + 2 * c) * 3;
-      T* dst = scratch + p * LD + 9 * dy;
-#pragma unroll
-      for (int k = 0; k < 9; ++k) dst[k] = src[k];
-      if (dy == 2) {
-#pragma unroll
-        for (int k = 9; k < 14; ++k) dst[k] = cvt<T>(0.f);  // K padding 27..31
-      }
-    }
-    __syncthreads();
-    mma_stage<32, 32, 1, 1, LD, 1, 27>(scratch, out_w, out_h, out_w, w, epi);
-  } else {
-    fma_stage<3, 32, 3, 2, 3, 4>(img, img_w, out_h, out_w, w, epi);
-  }
-}
-
 // Epilogue into a shared-memory stage (pixel stride LDO): affine, optional
 // ReLU, rounded to T, and 0 where the pixel (tile origin (r0, c0) at a
 // resolution of h x w) lies outside the image -- the zero padding the next
@@ -435,8 +335,7 @@ constexpr int kStemTH = 8, kStemTW = 16;
 constexpr int kStemC1H = kStemTH + 2, kStemC1W = kStemTW + 2;            // 10 x 18
 constexpr int kStemImH = 2 * kStemC1H + 1, kStemImW = 2 * kStemC1W + 1;  // 21 x 37
 constexpr int kStemImg = (kStemImH * kStemImW * 3 + 7) / 8 * 8;
-// c1, then conv1's im2col scratch (bf16) of the same size
-constexpr int kStemSmem = kStemImg + 2 * kStemC1H * kStemC1W * kLd<32>;
+constexpr int kStemSmem = kStemImg + kStemC1H * kStemC1W * kLd<32>;  // the patch, c1
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -451,12 +350,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   // conv1 rows r0-1 .. r0+TH tap image rows 2(r0-1)-1 ..
   load_patch<kStemImH, kStemImW>(x, H, W, n, 2 * r0 - 3, 2 * c0 - 3, img);
   __syncthreads();
-  conv1_stage(
-      img, kStemImW, kStemC1H, kStemC1W, c1 + kStemC1H * kStemC1W * kLd<32>, prm + kK1,
-      ToStage<kLd<32>, true, T>{c1, kStemC1W, r0 - 1, c0 - 1, H2, W2,
-                                     prm + kA1, prm + kB1});
+  fma_stage<3, 32, 3, 2, 3, 4>(
+      img, kStemImW, kStemC1H, kStemC1W, prm + kK1,
+      ToStage<kLd<32>, true, T>{c1, kStemC1W, r0 - 1, c0 - 1, H2, W2, prm + kA1, prm + kB1});
   __syncthreads();
-  gemm_stage<32, 64, 3, 1, kLd<32>, 2, 8>(
+  fma_stage<32, 64, 3, 1, kLd<32>, 8>(
       c1, kStemC1W, kStemTH, kStemTW, prm + kK2,
       ToOutput<64, true, T>{y, nullptr, n, kStemTW, r0, c0, H2, W2, prm + kA2, prm + kB2});
 }
@@ -472,7 +370,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 // Shared memory, in elements of T, reused as the stages retire:
 //   S : skip result (4 x 8 x 128, unpadded)
 //   P : image patch + c1, then dw1 out, dw2 out, dw3 out
-//   Q : conv1's im2col (bf16), then x2, then x3, then x4
+//   Q : x2, then x3, then x4
 constexpr int kB1TH = 4, kB1TW = 8;
 constexpr int kSkipN = kB1TH * kB1TW * 128;
 constexpr int kB1Img = (31 * 47 * 3 + 7) / 8 * 8;
@@ -480,9 +378,7 @@ constexpr int kPN = 9 * 17 * kLd<128>;
 constexpr int kQN = 11 * 19 * kLd<128>;
 constexpr int kB1Smem = kSkipN + kPN + kQN;
 static_assert(kB1Img + 15 * 23 * kLd<32> <= kPN, "patch + c1 must fit in P");
-static_assert(13 * 21 * kLd<64> <= kQN && 11 * 19 * kLd<64> <= kPN &&
-                  15 * 23 * kLd<32> <= kQN,
-              "x2 / dw1 / conv1 im2col must fit");
+static_assert(13 * 21 * kLd<64> <= kQN && 11 * 19 * kLd<64> <= kPN, "x2 / dw1 must fit");
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -502,33 +398,33 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   load_patch<31, 47>(x, H, W, n, 4 * t0 - 9, 4 * u0 - 9, img);
   __syncthreads();
-  conv1_stage(
-      img, 47, 15, 23, Q, prm + kK1,
+  fma_stage<3, 32, 3, 2, 3, 4>(
+      img, 47, 15, 23, prm + kK1,
       ToStage<L32, true, T>{c1, 23, R - 4, C - 4, H2, W2, prm + kA1, prm + kB1});
   __syncthreads();
-  gemm_stage<32, 64, 3, 1, L32, 2, 8>(
+  fma_stage<32, 64, 3, 1, L32, 8>(
       c1, 23, 13, 21, prm + kK2,
       ToStage<L64, true, T>{Q, 21, R - 3, C - 3, H2, W2, prm + kA2, prm + kB2});
   __syncthreads();
   // skip: 1x1 stride 2 on x2 (never outside the image), and sep1's dw
-  gemm_stage<64, 128, 1, 2, L64, 2, 4>(
+  fma_stage<64, 128, 1, 2, L64, 4>(
       Q + (3 * 21 + 3) * L64, 21, kB1TH, kB1TW, prm + kWSK,
       ToStage<128, false, T>{skip, kB1TW, 0, 0, 1 << 30, 1 << 30, prm + kAS, prm + kBS});
   dw_stage<64, 1>(Q, 21, 11, 19, prm + kDW1, prm + kAD1, prm + kBD1, P);
   __syncthreads();
-  gemm_stage<64, 128, 1, 1, L64, 4, 8>(
+  fma_stage<64, 128, 1, 1, L64, 8>(
       P, 19, 11, 19, prm + kPW1,
       ToStage<L128, false, T>{Q, 19, R - 2, C - 2, H2, W2, prm + kAP1, prm + kBP1});
   __syncthreads();
   dw_stage<128, 1>(Q, 19, 9, 17, prm + kDW2, prm + kAD2, prm + kBD2, P);
   __syncthreads();
-  gemm_stage<128, 128, 1, 1, L128, 4, 8>(
+  fma_stage<128, 128, 1, 1, L128, 8>(
       P, 17, 9, 17, prm + kPW2,
       ToStage<L128, false, T>{Q, 17, R - 1, C - 1, H2, W2, prm + kAP2, prm + kBP2});
   __syncthreads();
   dw_stage<128, 2>(Q, 17, kB1TH, kB1TW, prm + kDW3, prm + kAD3, prm + kBD3, P);
   __syncthreads();
-  gemm_stage<128, 128, 1, 1, L128, 2, 4>(
+  fma_stage<128, 128, 1, 1, L128, 4>(
       P, kB1TW, kB1TH, kB1TW, prm + kPW3,
       ToOutput<128, false, T>{y, skip, n, kB1TW, t0, u0, H4, W4, prm + kAP3, prm + kBP3});
 }
@@ -1157,6 +1053,339 @@ __global__ void __launch_bounds__(kWgThreadsB1, 1)
   }
 }
 
+// ============================================= the stem in bf16: the wgmma kernel
+// stem_wgmma_kernel (the design is described at the top). Output tile: 8
+// rows x 62 columns at 1/2 resolution, from (R0, C0) = (8 ty, 62 tx).
+//   c1     conv1 over 10 rows x 64 columns from (R0 - 1, C0 - 1): a raster 64
+//          wide, so that c1 raster row r is conv1's M tile r; four planes of
+//          8 channels without swizzle, 648 pixels a plane (640 and the shifted
+//          reads of the spare columns)
+//   conv2  the tile's 8 x 64 raster (columns 62, 63 of a row are spare) in
+//          four chains of 128 pixels (two output rows): tap (dy, dx) of
+//          raster pixel o reads c1 pixel o + 64 dy + dx, one descriptor a tap
+//   patch  21 image rows from 2 R0 - 3, 400 bf16 elements a row from the
+//          16-byte chunk that holds element 6 C0 - 9 (the first of column
+//          2 C0 - 3), as a 4-D box (8 elements, 50 chunks, 21 rows, 1 image)
+//          of the image seen as (n, h, 3 w / 8, 8): its innermost start is
+//          always 0, so every tile's box starts 16-byte aligned
+// Warpgroups 0 and 1 (the producers, c1 rows 5 wg.. each) run conv1 into
+// one of two c1 buffers while warpgroups 2 and 3 (the consumers, output rows
+// 4 h.. of consumer h = wg - 2) run conv2 on the other, taking turns on the
+// tensor cores; stores go out by TMA from a staging slot a chain.
+constexpr int kStemWGs = 4, kStemThreads = 128 * kStemWGs;
+constexpr int kStemTileRows = 8, kStemTileCols = 62, kStemRaster = 64;
+constexpr int kStemC1Rows = kStemTileRows + 2, kStemC1Pix = kStemC1Rows * kStemRaster;  // 640
+constexpr int kStemPlanePix = 648, kStemPlane = kStemPlanePix * 16;
+constexpr int kStemC1Bytes = 4 * kStemPlane;
+constexpr int kStemMT1 = kStemC1Pix / 64;  // conv1's M tiles: one a c1 row
+constexpr int kStemRowsP = kStemMT1 / 2;   // a producer's M tiles: in flight 3, then 2
+constexpr int kStemChainN = 128;           // conv2: N of a chain, two output rows
+constexpr int kStemChains = kStemTileRows * kStemRaster / kStemChainN;  // 4
+constexpr int kStemImgRows = 2 * kStemC1Rows + 1, kStemImgChunks = 50;
+constexpr int kStemImgElems = 8 * kStemImgChunks, kStemImgBytes = kStemImgRows * kStemImgElems * 2;
+// Shared memory, bytes from the 1024-aligned base (ops/entrychain.py::
+// _stem_regions): conv2's A (the weights as pack_operands lays out conv2's
+// B: 64 rows of K, 128-byte swizzled) and conv1's B; the staging slots, one
+// a chain (two output rows of 64 pixels x 128 bytes, swizzled as the
+// output's tensor map takes them); two c1 buffers; two patches; the f32
+// affines (a1, b1, a2, b2); the mbarriers.
+constexpr int kSW2 = 0, kSW1 = kSW2 + kOpConv2Bytes;
+constexpr int kSStage = kSW1 + kOpConv1Bytes, kSSlot = 2 * kStemRaster * 128;
+constexpr int kSC1 = kSStage + kStemChains * kSSlot;
+constexpr int kSImg = kSC1 + 2 * kStemC1Bytes, kSImgStride = 17408;
+constexpr int kSRaw = kSImg + 2 * kSImgStride, kSRawBytes = (64 + 128) * 4;
+constexpr int kSBar = kSRaw + kSRawBytes, kStemBars = 7;
+constexpr int kStemWgSmem = kSBar + kStemBars * 8 + 1024;  // and 1 KB of alignment slack
+// mbarriers: the weights and affines; the patches (buffer b at 1 + b); c1
+// written (3 + b, the producers' 256 threads) and read (5 + b, the
+// consumers' 256)
+enum { kSBarW = 0, kSBarImg = 1, kSBarFull = 3, kSBarEmpty = 5 };
+// named barriers: 1 the producers', 2 + h consumer h's, kStemTurn + h
+// consumer h's turn to issue a chain
+constexpr int kStemTurn = 4;
+static_assert(kStemRowsP == 5 && kStemChains == 4, "producers: 3 + 2 M tiles; consumers: 2 chains");
+static_assert((kStemTileRows * kStemRaster - 1) + 2 * kStemRaster + 2 < kStemPlanePix,
+              "conv2's shifted reads stay in c1's planes");
+static_assert(kStemImgElems >= 7 + 6 * (kStemRaster - 1) + 9 && kStemImgBytes <= kSImgStride,
+              "a patch row holds the lead and the last column's taps");
+static_assert(kSStage % 1024 == 0 && kSSlot % 1024 == 0 && kSImg % 1024 == 0 &&
+                  kSImgStride % 1024 == 0 && kSC1 % 16 == 0 && kStemPlane % 16 == 0,
+              "swizzled slots 1024-aligned, TMA and wgmma operands 16-aligned");
+static_assert(kStemWgSmem <= 232448, "shared memory of a block");
+
+struct StemArgs {
+  const float* prm;  // pack_weights' f32 buffer of the stem: the affines are read
+  const char* ops;   // pack_operands' bf16 B operands: conv1, conv2
+  int h, w;
+  int tiles_x, tiles_y, tiles;  // 8 x 62 output tiles: across, down, all images
+};
+
+#ifdef STEM_NO_MMA
+#define STEM_MMA(stmt)  // probe build: the products left out
+#else
+#define STEM_MMA(stmt) stmt
+#endif
+
+__global__ void __launch_bounds__(kStemThreads, 1)
+    stem_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_y, const StemArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // the old kernels' declaration
+  char* const base =
+      reinterpret_cast<char*>(smem_raw) + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(base + kSBar);
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);  // uniform over the warp
+  const int wt = tid % 128, lane = tid % 32, warp = wt / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int h2 = p.h / 2, w2 = p.w / 2;
+  // this block's tiles: blockIdx.x + i gridDim.x, i < count (the grid is at
+  // most the tile count)
+  const int count = (p.tiles - 1 - int(blockIdx.x)) / int(gridDim.x) + 1;
+  auto origin = [&](int i, int& n, int& r0, int& c0) {
+    const int tile = blockIdx.x + i * gridDim.x;
+    n = tile / (p.tiles_x * p.tiles_y);
+    r0 = kStemTileRows * ((tile / p.tiles_x) % p.tiles_y);
+    c0 = kStemTileCols * (tile % p.tiles_x);
+  };
+  // the patch of tile i into buffer i % 2: chunk (6 C0 - 9) / 8 rounded down
+  auto load_img = [&](int i) {
+    int n, r0, c0;
+    origin(i, n, r0, c0);
+    uint64_t* b = &bar[kSBarImg + i % 2];
+#ifdef STEM_NO_IMG
+    mbar_arrive(b);
+#else
+    mbar_arrive_expect_tx(b, kStemImgBytes);
+    tma_load_4d(base + kSImg + (i % 2) * kSImgStride, &map_x, 0, (6 * c0 - 9) >> 3, 2 * r0 - 3,
+                n, b);
+#endif
+  };
+  if (tid == 0) {
+    mbar_init(&bar[kSBarW], 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&bar[kSBarImg + b], 1);
+      mbar_init(&bar[kSBarFull + b], 256);
+      mbar_init(&bar[kSBarEmpty + b], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // the weights once a block, the patches of the first two tiles
+    mbar_arrive_expect_tx(&bar[kSBarW], kOpConv2Bytes + kOpConv1Bytes + kSRawBytes);
+    bulk_load(base + kSW2, p.ops + kOpConv2, kOpConv2Bytes, &bar[kSBarW]);
+    bulk_load(base + kSW1, p.ops + kOpConv1, kOpConv1Bytes, &bar[kSBarW]);
+    bulk_load(base + kSRaw, p.prm + kA1, 64 * 4, &bar[kSBarW]);         // a1, b1
+    bulk_load(base + kSRaw + 256, p.prm + kA2, 128 * 4, &bar[kSBarW]);  // a2, b2
+    for (int i = 0; i < 2 && i < count; ++i) load_img(i);
+  }
+  mbar_wait(&bar[kSBarW], 0);
+
+  if (wg < 2) {
+    // ------------------------------------------------ producers: conv1
+    // M tile r = c1 raster row r: row c of it is c1 pixel (R0 - 1 + r,
+    // C0 - 1 + c); A from registers, gathered from the patch: k = (ky 3 +
+    // kx) 3 + ch at patch row 2 r + ky, element lead + 6 c + 3 kx + ch
+    // (k >= 27: 0). Producer wg takes M tiles 5 wg .. 5 wg + 4: three in
+    // flight at once, then two.
+    int off[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = 16 * s + 2 * q + (e & 1) + (e >> 1) * 8;
+        off[s][e] = kk < 27 ? (kk / 9) * kStemImgElems + ((kk % 9) / 3) * 3 + kk % 3 : -1;
+      }
+    // conv1's affine of this thread's column pairs 8 j + 2 q, + 1: (a, a, b, b)
+    const float* const raw1 = reinterpret_cast<const float*>(base + kSRaw);
+    float4 aff[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 8 * j + 2 * q;
+      aff[j] = make_float4(raw1[c], raw1[c + 1], raw1[32 + c], raw1[32 + c + 1]);
+    }
+    const int mi = lane / 8, srow = 16 * warp + (mi & 1) * 8 + lane % 8;  // stmatrix rows
+#pragma unroll 1
+    for (int i = 0; i < count; ++i) {
+      const int b = i & 1;
+      int n, r0, c0;
+      origin(i, n, r0, c0);
+      char* const c1 = base + kSC1 + b * kStemC1Bytes;
+      const uint16_t* const im = reinterpret_cast<const uint16_t*>(base + kSImg + b * kSImgStride);
+      const int lead = (6 * c0 - 9) & 7;
+      const int col0 = c0 - 1 + 16 * warp + g, col1 = col0 + 8;  // this thread's two rows
+      const bool cin0 = col0 >= 0 && col0 < w2, cin1 = col1 < w2;
+      if (i >= 2) mbar_wait(&bar[kSBarEmpty + b], ((i >> 1) - 1) & 1);
+      mbar_wait(&bar[kSBarImg + b], (i >> 1) & 1);
+      // G M tiles from r1: their A gathered, their products in flight
+      // together, waited on once, then their epilogues
+      auto group = [&](auto g_, int r1) {
+        constexpr int G = decltype(g_)::value;
+        uint32_t a[G][2][4];
+#pragma unroll
+        for (int t = 0; t < G; ++t) {
+          const int b0 = 2 * (r1 + t) * kStemImgElems + 6 * (16 * warp + g) + lead, b1 = b0 + 48;
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            auto val = [&](int bb, int e) {
+              return off[s][e] < 0 ? 0u : uint32_t(im[bb + off[s][e]]);
+            };
+            a[t][s][0] = val(b0, 0) | val(b0, 1) << 16;
+            a[t][s][1] = val(b1, 0) | val(b1, 1) << 16;
+            a[t][s][2] = val(b0, 2) | val(b0, 3) << 16;
+            a[t][s][3] = val(b1, 2) | val(b1, 3) << 16;
+          }
+        }
+        float d[G][16];
+#pragma unroll
+        for (int t = 0; t < G; ++t)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) d[t][j] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < G; ++t)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            STEM_MMA(Wgmma<32>::rs<0>(d[t], a[t][s], kmajor_desc(base + kSW1, 32, 0, 16 * s), s));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int t = 0; t < G; ++t) fence_regs(d[t]);
+#ifndef STEM_NO_EPI
+        // the affine, the ReLU, zeros outside the image, bf16, by stmatrix
+        // into the planes: chunk j (channels 8 j..) of c1 pixel 64 r + row
+#pragma unroll
+        for (int t = 0; t < G; ++t) {
+          const int r = r1 + t, row = r0 - 1 + r;
+          const bool in0 = row >= 0 && row < h2 && cin0, in1 = row >= 0 && row < h2 && cin1;
+#pragma unroll
+          for (int j = 0; j < 4; j += 2) {
+            uint32_t v[4];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float4 f = aff[j + hh];
+              const float* e = &d[t][4 * (j + hh)];
+              v[2 * hh] = in0 ? bf16x2(fmaxf(fmaf(e[0], f.x, f.z), 0.f),
+                                       fmaxf(fmaf(e[1], f.y, f.w), 0.f)) : 0u;
+              v[2 * hh + 1] = in1 ? bf16x2(fmaxf(fmaf(e[2], f.x, f.z), 0.f),
+                                           fmaxf(fmaf(e[3], f.y, f.w), 0.f)) : 0u;
+            }
+            stmatrix_x4(c1 + (j + (mi >> 1)) * kStemPlane + (64 * r + srow) * 16, v[0], v[1],
+                        v[2], v[3]);
+          }
+        }
+#endif
+      };
+      group(std::integral_constant<int, 3>{}, kStemRowsP * wg);
+      group(std::integral_constant<int, 2>{}, kStemRowsP * wg + 3);
+      fence_proxy_async();  // c1 is read by wgmma next; the patch is written by TMA
+      mbar_arrive(&bar[kSBarFull + b]);
+      named_sync(1, 256);  // every producer thread is done with patch b
+      if (tid == 0 && i + 2 < count) load_img(i + 2);
+    }
+    return;
+  }
+
+  // --------------------------------------------------- consumers: conv2
+  // Consumer h takes chains k = 2 h, 2 h + 1 of each tile: 128 raster pixels
+  // from o = 128 k (output rows 2 k, 2 k + 1). Transposed, so that M is the
+  // 64 output channels: D (64 x 128) = W2^T (A: 64 rows of K = 9 taps x 32
+  // channels, from the weight slot) . c1 windows (B, K-major: pixel o +
+  // 64 dy + dx of planes 2 (s % 2), + 1 for k-step s). A warpgroup's wgmma
+  // issue waits on the tensor cores, so its own epilogue cannot run under
+  // its products: the consumers take turns (named barriers kStemTurn + h,
+  // consumer 0 first), one's epilogue under the other's chain.
+  const int h = wg - 2;
+  const float* const raw2 = reinterpret_cast<const float*>(base + kSRaw + 256);
+  const int chan = 16 * warp + g;  // accumulator rows: channels chan, chan + 8
+  const float a_lo = raw2[chan], a_hi = raw2[chan + 8];
+  const float b_lo = raw2[64 + chan], b_hi = raw2[64 + chan + 8];
+  float e[64];
+  auto chain = [&](int i, int k) {
+    const char* const c1 = base + kSC1 + (i & 1) * kStemC1Bytes;
+    const int o = kStemChainN * k;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 18; ++s) {
+      const int tap = s / 2;
+      const uint64_t da = kmajor_desc(base + kSW2, 64, 0, 16 * s);
+      const uint64_t db = plain_desc(
+          c1 + 2 * (s % 2) * kStemPlane + (o + (tap / 3) * kStemRaster + tap % 3) * 16,
+          kStemPlane, 128);
+      if (s == 0) {
+        STEM_MMA(Wgmma<128>::ss0(e, da, db));
+      } else {
+        STEM_MMA(Wgmma<128>::ss<0>(e, da, db, 1));
+      }
+    }
+    wgmma_commit();
+  };
+  // the affine, the ReLU, bf16, stored transposed into slot k (pixel-major,
+  // 128 bytes a pixel, 16-byte chunk c of pixel x at c ^ (x % 8)), then two
+  // TMA stores of 62 pixels, output rows R0 + 2 k, + 1
+  auto store = [&](int i, int k) {
+    char* const slot = base + kSStage + k * kSSlot;
+    // the slot's stores of the tile before (two groups ago) have read it
+    if (wt == 0) bulk_wait<1, true>();
+    named_sync(2 + h, 128);
+#ifndef STEM_NO_EPI
+    const int mi = lane / 8, rr = lane % 8;
+#pragma unroll
+    for (int j = 0; j < 16; j += 2) {
+      uint32_t r[4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int jj = j + hh;  // pixels 8 jj + 2 q, + 1
+        const float v0 = fmaxf(fmaf(e[4 * jj], a_lo, b_lo), 0.f);
+        const float v1 = fmaxf(fmaf(e[4 * jj + 1], a_lo, b_lo), 0.f);
+        const float v2 = fmaxf(fmaf(e[4 * jj + 2], a_hi, b_hi), 0.f);
+        const float v3 = fmaxf(fmaf(e[4 * jj + 3], a_hi, b_hi), 0.f);
+        r[2 * hh] = bf16x2(v0, v1);      // channels chan.. (chunk 2 warp)
+        r[2 * hh + 1] = bf16x2(v2, v3);  // channels chan + 8.. (chunk 2 warp + 1)
+      }
+      const int px = 8 * (j + (mi >> 1)) + rr, ch = 2 * warp + (mi & 1);
+      stmatrix_x4_trans(slot + px * 128 + ((ch ^ rr) << 4), r[0], r[1], r[2], r[3]);
+    }
+#endif
+    fence_proxy_async();  // the slot is read by TMA next
+    named_sync(2 + h, 128);
+#ifndef STEM_NO_STORE
+    if (wt == 0) {
+      int n, r0, c0;
+      origin(i, n, r0, c0);
+      tma_store_4d(&map_y, slot, 0, c0, r0 + 2 * k, n);
+      tma_store_4d(&map_y, slot + kStemRaster * 128, 0, c0, r0 + 2 * k + 1, n);
+    }
+#endif
+    if (wt == 0) bulk_commit();
+  };
+  // Each chain is waited on before its epilogue: a product in flight while
+  // its warpgroup reads accumulators across the loop's back edge makes ptxas
+  // serialise every wgmma (C7514).
+  if (h == 1) named_arrive(kStemTurn, 256);
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    mbar_wait(&bar[kSBarFull + (i & 1)], (i >> 1) & 1);
+#pragma unroll 1
+    for (int c = 0; c < 2; ++c) {
+      named_sync(kStemTurn + h, 256);
+      chain(i, 2 * h + c);
+      // the other consumer's turn (consumer 1 gives none after its last chain)
+      if (h == 0 || i + 1 < count || c == 0) named_arrive(kStemTurn + 1 - h, 256);
+      wgmma_wait<0>();
+      fence_regs(e);
+      if (c == 1) mbar_arrive(&bar[kSBarEmpty + (i & 1)]);  // tile i's c1 is read
+      store(i, 2 * h + c);
+    }
+  }
+  if (wt == 0) bulk_wait<0, false>();  // the stores are done before the block's memory goes
+}
+
+// The gate of ops/entrychain.py::stem_supported.
+bool stem_supported(int h, int w) {
+  return h % 2 == 0 && w % 32 == 0 && (h / 2) % 8 == 0 && h / 2 >= 16;
+}
+
 // The gate of ops/entrychain.py::stem_block1_supported.
 bool block1_supported(int h, int w) {
   return h % 4 == 0 && w % 64 == 0 && (h / 4) % 4 == 0 && h / 4 >= 8;
@@ -1186,6 +1415,63 @@ bool encode_image(CUtensorMap* map, const void* x, int n, int h, int w) {
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The image as a 4-D map (n, h, 3 w / 8, 8) of bf16 for the stem: boxes of 8
+// elements x 50 chunks x 21 rows of one image, unswizzled, zeros past every
+// edge (conv1's padding).
+bool encode_image_chunks(CUtensorMap* map, const void* x, int n, int h, int w) {
+  auto fn = encode_fn();
+  if (!fn) return false;
+  cuuint64_t dims[4] = {8, cuuint64_t(w) * 3 / 8, cuuint64_t(h), cuuint64_t(n)};
+  cuuint64_t strides[3] = {16, cuuint64_t(w) * 6, cuuint64_t(w) * 6 * cuuint64_t(h)};
+  cuuint32_t box[4] = {8, kStemImgChunks, kStemImgRows, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The stem's output as a 4-D map (n, h/2, w/2, 64) of bf16: boxes of 64
+// channels x 62 pixels of one row, 128-byte swizzle; a store writes none of
+// a box that lies past the edges.
+bool encode_stem_out(CUtensorMap* map, void* y, int n, int h2, int w2) {
+  auto fn = encode_fn();
+  if (!fn) return false;
+  cuuint64_t dims[4] = {64, cuuint64_t(w2), cuuint64_t(h2), cuuint64_t(n)};
+  cuuint64_t strides[3] = {128, cuuint64_t(w2) * 128, cuuint64_t(w2) * 128 * cuuint64_t(h2)};
+  cuuint32_t box[4] = {64, kStemTileCols, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, y, dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+StemArgs stem_args(const void* prm, const void* ops, int n, int h, int w) {
+  StemArgs a;
+  a.prm = static_cast<const float*>(prm);
+  a.ops = static_cast<const char*>(ops);
+  a.h = h;
+  a.w = w;
+  a.tiles_x = (w / 2 + kStemTileCols - 1) / kStemTileCols;
+  a.tiles_y = h / 2 / kStemTileRows;
+  a.tiles = a.tiles_x * a.tiles_y * n;
+  return a;
+}
+
+int launch_stem_wgmma(const void* x, void* y, const void* prm, const void* ops, int n, int h,
+                      int w, cudaStream_t stream) {
+  if (n < 1 || !stem_supported(h, w)) return -1;
+  CUtensorMap map_x, map_y;
+  if (!encode_image_chunks(&map_x, x, n, h, w) || !encode_stem_out(&map_y, y, n, h / 2, w / 2))
+    return -3;
+  const StemArgs a = stem_args(prm, ops, n, h, w);
+  cudaError_t err = cudaFuncSetAttribute(stem_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kStemWgSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stem_wgmma_kernel<<<std::min(sm_count(), a.tiles), kStemThreads, kStemWgSmem, stream>>>(
+      map_x, map_y, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 B1Args block1_args(const void* x, void* y, const void* prm, const void* ops, int n, int h,
@@ -1250,16 +1536,19 @@ extern "C" {
 int entry_param_count(int block1) { return block1 ? kBlock1End : kStemEnd; }
 
 // Number of bf16 elements in the operand buffer the bf16 stem + block1
-// reads beside it (ops/entrychain.py::pack_operands).
-int entry_operand_count() { return kOpBytes / 2; }
+// (block1 != 0) or the bf16 stem reads beside the f32 buffer
+// (ops/entrychain.py::pack_operands): the stem's are its first two.
+int entry_operand_count(int block1) { return (block1 ? kOpBytes : kOpConv2 + kOpConv2Bytes) / 2; }
 
-// x (n,h,w,3) -> y (n,h/2,w/2,64); bf16 != 0 selects bfloat16 I/O, else f32.
-int entry_stem(const void* x, void* y, const void* prm, int n, int h, int w,
+// x (n,h,w,3) -> y (n,h/2,w/2,64). bf16 != 0: bfloat16 I/O by
+// stem_wgmma_kernel, prm the stem's f32 buffer (its affines are read), ops
+// its bf16 operands (-1 outside the gate, -3 when a tensor map cannot be
+// made); else f32 I/O by the first version, which reads prm alone.
+int entry_stem(const void* x, void* y, const void* prm, const void* ops, int n, int h, int w,
                int bf16, void* stream) {
-  const float* p = static_cast<const float*>(prm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_stem<__nv_bfloat16>(x, y, p, n, h, w, s)
-              : launch_stem<float>(x, y, p, n, h, w, s);
+  return bf16 ? launch_stem_wgmma(x, y, prm, ops, n, h, w, s)
+              : launch_stem<float>(x, y, static_cast<const float*>(prm), n, h, w, s);
 }
 
 // x (n,h,w,3) -> y (n,h/4,w/4,128). bf16 != 0: bfloat16 I/O by
@@ -1294,6 +1583,28 @@ int entry_plan(int n, int h, int w, int sms, int* out) {
                      kC1W, kC1W, kX2W, kX2W, kX3W, kX3W, kX4W, kX4W,
                      kMT1, kMT2, 1, kMT3, kMT4, 1, kTapWaits};
   for (int i = 0; i < 47; ++i) out[i] = v[i];
+  return 0;
+}
+
+// stem_wgmma_kernel's plan for a (n, h, w, 3) image (sms <= 0: the current
+// device's SM count), 32 ints as ops/entrychain.py::stem_plan_ints orders
+// them: tile rows, columns, raster width; tiles across, down, images; grid;
+// threads; shared memory bytes; (offset, bytes) of conv2's A, conv1's B, the
+// staging slots, the c1 buffers, the patches, the affines, the mbarriers;
+// c1 rows, pixels a c1 plane; conv1's M
+// tiles, conv2's chains and their N; the patch box's rows and chunks; the
+// output box's pixels; bytes a staging slot. Returns -1 outside the gate.
+int stem_plan(int n, int h, int w, int sms, int* out) {
+  if (n < 1 || !stem_supported(h, w)) return -1;
+  const StemArgs a = stem_args(nullptr, nullptr, n, h, w);
+  const int v[32] = {kStemTileRows, kStemTileCols, kStemRaster, a.tiles_x, a.tiles_y, n,
+                     std::min(sms > 0 ? sms : sm_count(), a.tiles), kStemThreads, kStemWgSmem,
+                     kSW2, kOpConv2Bytes, kSW1, kOpConv1Bytes, kSStage, kSC1 - kSStage,
+                     kSC1, 2 * kStemC1Bytes, kSImg, 2 * kSImgStride, kSRaw, kSRawBytes,
+                     kSBar, kStemBars * 8,
+                     kStemC1Rows, kStemPlanePix, kStemMT1, kStemChains, kStemChainN,
+                     kStemImgRows, kStemImgChunks, kStemTileCols, kSSlot};
+  for (int i = 0; i < 32; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the hand-written kernels
-// (attention.cu, attention_bwd.cu, sepconv.cu, probe_dot.cu): mbarriers, TMA
-// tile loads, the descriptors of 128-byte-swizzled wgmma operands,
+// (attention.cu, attention_bwd.cu, sepconv.cu, entrychain.cu, probe_dot.cu):
+// mbarriers, TMA tile loads and stores, stmatrix, the descriptors of
+// 128-byte-swizzled wgmma operands,
 // the m64nNk16 bf16 wgmma with f32 accumulators, the m64nNk32 s8 wgmma with
 // s32 accumulators, and the host's TMA tensor maps. Every definition sits in
 // an anonymous namespace: each source that includes this header gets its own
@@ -79,6 +80,39 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
       : "memory");
+}
+// Box (c0, c1, c2, c3) of shared memory at src to a 4-D tensor map (what lies
+// past the tensor's edges is not written), tracked by this thread's bulk
+// async-groups: bulk_commit() closes a group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's bulk groups are pending: still reading
+// their shared memory (kRead) or not yet done.
+template <int N, bool kRead> __device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead) {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+  }
+}
+// Four 8 x 8 bf16 matrices from the mma fragment layout, each stored
+// transposed: lane i gives the address of row i % 8 of matrix i / 8, and
+// that row receives column i % 8 of the fragment (its 8 rows, 16 bytes).
+__device__ __forceinline__ void stmatrix_x4_trans(void* row, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(row)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 // This thread's generic-proxy writes to shared memory, made visible to the
 // async proxy (wgmma operands).

@@ -241,11 +241,11 @@ class Xception65(nn.Module):
 
     def _entry_weights(self, mode, x):
         """(folded weights, their packed kernel buffers or None) of the
-        fused entry for input ``x``: ``pack_weights``' f32 buffer, and for
-        stem + block1 in bf16 the pair of it and ``pack_operands``' bf16
-        buffer. Folding and packing take ~80 small launches, so the result
-        is kept until a weight is replaced or changed in place (its storage
-        or version counter moves)."""
+        fused entry for input ``x``: ``pack_weights``' f32 buffer, and in
+        bf16 the pair of it and ``pack_operands``' bf16 buffer. Folding and
+        packing take ~80 small launches, so the result is kept until a
+        weight is replaced or changed in place (its storage or version
+        counter moves)."""
         b1 = self.block1
         modules = [self.conv1, self.conv2]
         if mode == "block1":
@@ -264,7 +264,7 @@ class Xception65(nn.Module):
                 )
                 weights = (stem_p, sep_p, _folded(b1.skip_conv.weight, b1.skip_bn))
             packed = pack_weights(x, *weights) if x.is_cuda else None
-            if packed is not None and mode == "block1" and x.dtype == torch.bfloat16:
+            if packed is not None and x.dtype == torch.bfloat16:
                 packed = (packed, pack_operands(x, *weights))
             self._entry_cache = (key, weights, packed)
         return self._entry_cache[1], self._entry_cache[2]

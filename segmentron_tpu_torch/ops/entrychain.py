@@ -18,24 +18,44 @@ pointwise ``(1,1,C,C')``) with BN already folded into f32 affines
 Bound on one H100 at 1024x2048, per image: stem+block1 does ~27.3 G MAC
 (~54.5 GFLOP) and moves ~46 MB in bf16, so it is bound by operations
 (~55 us at the dense bf16 tensor-core peak); the stem does ~10.1 G MAC
-and moves ~80 MB, so it is bound by bytes.
+and moves ~80 MB (12.6 MB in, 67.1 MB out), so it is bound by bytes
+(~24 us; in f32 by operations on the CUDA cores, ~0.30 ms).
 
-Two designs share the source. ``fused_stem_block1`` in bf16 takes
-``stem_block1_wgmma_kernel``: persistent blocks, one an SM, each walking
-output tiles of 8 x 8 pixels at 1/4 resolution; the products (conv1,
-conv2, the skip, the three pointwise convs) on ``wgmma`` with f32 sums,
-their B operands read once a tile and stage as bf16 by TMA from the
-buffer ``pack_operands`` writes (128-byte-swizzled K-major boxes), the
-image patch by a TMA tile load, the depthwise taps on the CUDA cores;
-every stage of a tile stays in shared memory, stages that are read and
-written at once overlapping where the reads have moved on
-(``entry_plan`` gives the tile, the grid and every region; the source's
-header the whole design). On an NVIDIA H100 80GB HBM3 at 700.00 W it
-takes 0.4279 ms at (1, 1024, 2048, 3), 7.8x its bound, the depthwise taps
-on the CUDA cores, the epilogues and the stages run one after the other
-setting the pace (``chip_smoke.py --entry-probe``). The stem, and f32 I/O of both, keep the
-first version (one block a tile, ``mma.sync`` in bf16, CUDA-core FMA in
-f32).
+Three designs share the source, and none stands in for another: a CUDA
+tensor outside a kernel's gate raises.
+
+- ``fused_stem`` in bf16 takes ``stem_wgmma_kernel``: persistent blocks,
+  one an SM, of four warpgroups walk output tiles of 8 x 62 pixels at 1/2
+  resolution. Two producer warpgroups run conv1 on ``wgmma`` (A gathered
+  in registers from the image patch, which TMA loads two tiles ahead) into
+  one of two c1 buffers while two consumer warpgroups run conv2 on the
+  other: transposed (the 64 output channels as M), over a raster 64 wide so
+  that each tap is a shift of the c1 planes, in chains of 128 pixels that
+  the consumers issue in turns; each chain's epilogue writes a staging slot
+  that a TMA store sends out while the next chains run. Its operands are
+  ``pack_operands``' stem form (conv1, conv2); ``stem_plan`` gives the
+  tile, the grid and every region. On an NVIDIA H100 80GB HBM3 at 700.00 W
+  it takes 0.0472 ms at (1, 1024, 2048, 3), 0.0440 with the launch hidden,
+  5.3x the first version in turns and 1.8x its bound (``chip_smoke.py
+  --entry --baseline``); shared memory, which the products read and the
+  gather, the epilogues and the stores also use, sets its pace
+  (``--entry-probe``).
+- ``fused_stem_block1`` in bf16 takes ``stem_block1_wgmma_kernel``:
+  persistent blocks, one an SM, each walking output tiles of 8 x 8 pixels
+  at 1/4 resolution; the products (conv1, conv2, the skip, the three
+  pointwise convs) on ``wgmma`` with f32 sums, their B operands read once
+  a tile and stage as bf16 by TMA from the buffer ``pack_operands`` writes
+  (128-byte-swizzled K-major boxes), the image patch by a TMA tile load,
+  the depthwise taps on the CUDA cores; every stage of a tile stays in
+  shared memory, stages that are read and written at once overlapping
+  where the reads have moved on (``entry_plan`` gives the tile, the grid
+  and every region; the source's header the whole design). On an NVIDIA
+  H100 80GB HBM3 at 700.00 W it takes 0.4279 ms at (1, 1024, 2048, 3),
+  7.8x its bound, the depthwise taps on the CUDA cores, the epilogues and
+  the stages run one after the other setting the pace (``chip_smoke.py
+  --entry-probe``).
+- f32 I/O of both keeps the first version: one block a tile, every stage
+  f32 FMA on the CUDA cores.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes
 the plain PyTorch version (``*_plain``, the same stages as ``F.conv2d``
@@ -55,6 +75,7 @@ from .kernels import library
 __all__ = [
     "entry_plan",
     "kernel_entry_plan",
+    "kernel_stem_plan",
     "fused_stem",
     "fused_stem_plain",
     "stem_supported",
@@ -63,6 +84,7 @@ __all__ = [
     "pack_operands",
     "pack_weights",
     "stem_block1_supported",
+    "stem_plan",
 ]
 
 _B = 16  # the JAX kernels' W-block; kept so the gates below match theirs
@@ -173,6 +195,76 @@ def plan_ints(plan: dict) -> list:
             plan["tap_waits"]]
 
 
+# ---------------------------------------------------- the stem kernel's plan
+# Mirror of csrc/entrychain.cu's constants for stem_wgmma_kernel
+# (``stem_plan`` there; chip_smoke.py holds the two equal on the card).
+STEM_TILE = (8, 62)  # output rows, columns of a tile at 1/2 resolution
+STEM_RASTER = 64  # conv2's raster and c1's width: a raster row is one M tile
+STEM_C1_ROWS = STEM_TILE[0] + 2
+STEM_PLANE_PIXELS = 648  # c1 pixels of a channel plane: 640 and the spare columns' reads
+STEM_CHAIN_N = 128  # raster pixels of a conv2 chain (two output rows)
+STEM_CHAINS = STEM_TILE[0] * STEM_RASTER // STEM_CHAIN_N  # 4: two for each consumer
+# the patch as a box of the image seen as (n, h, 3 w / 8, 8): rows, 16-byte
+# chunks (400 elements: the row's lead to a chunk start, then 64 c1 columns'
+# taps, 6 elements a column)
+STEM_IMAGE_BOX = (2 * STEM_C1_ROWS + 1, 50)
+STEM_WARPGROUPS = 4  # two producers (conv1) and two consumers (conv2)
+
+
+def _stem_regions():
+    """Byte (offset, size) of each shared-memory region of
+    ``stem_wgmma_kernel`` from the block's 1024-byte-aligned base: conv2's
+    A (the weights as ``pack_operands`` lays out conv2's B) and conv1's B,
+    the staging slots (one for each of a tile's conv2 chains, two output
+    rows of 64 pixels x 128 bytes each), the two c1 buffers (four planes of
+    8 channels each), the two patches, the f32 affines (a1, b1, a2, b2),
+    the mbarriers."""
+    slot = 2 * STEM_RASTER * 128
+    c1 = 4 * STEM_PLANE_PIXELS * 16
+    w2, w1 = 64 * 320 * 2, 32 * 64 * 2
+    stage = w2 + w1
+    c1_off = stage + STEM_CHAINS * slot
+    img = c1_off + 2 * c1
+    raw = img + 2 * 17408
+    return {
+        "w2": (0, w2), "w1": (w2, w1), "stage": (stage, c1_off - stage), "c1": (c1_off, 2 * c1),
+        "img": (img, 2 * 17408), "raw": (raw, (64 + 128) * 4), "bar": (raw + 768, 7 * 8),
+    }
+
+
+def stem_plan(n: int, h: int, w: int, sms: int = H100_SMS) -> dict:
+    """What ``stem_wgmma_kernel`` runs for a (n, h, w, 3) bf16 image:
+    ``tile`` (output rows, columns at 1/2 resolution), ``raster``,
+    ``tiles`` (across, down, images), ``grid`` (persistent blocks, one an
+    SM at most), ``threads``, ``smem`` (dynamic bytes, 1 KB alignment slack
+    included), ``regions`` (``_stem_regions``), ``c1`` (rows, pixels a
+    plane), ``conv1_m_tiles``, ``chains`` (conv2's chains a tile and their
+    N), ``image_box`` (rows, chunks), ``out_box`` (pixels a row),
+    ``slot`` (bytes a staging slot).
+    Raises ValueError outside ``stem_supported``."""
+    if n < 1 or not stem_supported(h, w, 3):
+        raise ValueError(f"stem_plan: no kernel takes ({n}, {h}, {w}, 3)")
+    tiles = (-(-(w // 2) // STEM_TILE[1]), h // 2 // STEM_TILE[0], n)
+    regions = _stem_regions()
+    end = max(off + size for off, size in regions.values())
+    return dict(tile=STEM_TILE, raster=STEM_RASTER, tiles=tiles,
+                grid=min(sms, tiles[0] * tiles[1] * n), threads=128 * STEM_WARPGROUPS,
+                smem=end + 1024, regions=regions, c1=(STEM_C1_ROWS, STEM_PLANE_PIXELS),
+                conv1_m_tiles=STEM_C1_ROWS * STEM_RASTER // 64,
+                chains=(STEM_CHAINS, STEM_CHAIN_N), image_box=STEM_IMAGE_BOX,
+                out_box=STEM_TILE[1], slot=2 * STEM_RASTER * 128)
+
+
+def stem_plan_ints(plan: dict) -> list:
+    """``plan`` (``stem_plan``) flattened in the order of the source's
+    ``stem_plan``."""
+    order = ("w2", "w1", "stage", "c1", "img", "raw", "bar")
+    return [*plan["tile"], plan["raster"], *plan["tiles"], plan["grid"], plan["threads"],
+            plan["smem"], *(v for k in order for v in plan["regions"][k]), *plan["c1"],
+            plan["conv1_m_tiles"], *plan["chains"], *plan["image_box"], plan["out_box"],
+            plan["slot"]]
+
+
 def _swizzled(b, k_pad):
     """The B operand of a product with weights ``b`` (K, N) as wgmma reads
     it K-major: N rows of K bf16, K zero-padded to ``k_pad``, in boxes of 64
@@ -188,16 +280,20 @@ def _swizzled(b, k_pad):
     return out.reshape(-1)
 
 
-def pack_operands(x, stem_p, sep_p, skip_p):
+def pack_operands(x, stem_p, sep_p=(), skip_p=()):
     """The bf16 B operands of ``stem_block1_wgmma_kernel``'s products on
     ``x``'s device, each rounded to bf16 (the plain version's casts), in
     the order and layout of ``OPERANDS``: conv1 (K = 27 taps, ky kx ci,
     padded to 64), conv2 (K = 288 = 9 taps x 32 channels, padded to 320),
     the skip, pw1, pw2, pw3. The kernel copies each into a weight slot as
-    it is. A caller packs once per weight set (``packed=``)."""
+    it is. Without ``sep_p`` and ``skip_p``, the stem's form: conv1 and
+    conv2 alone, what ``stem_wgmma_kernel`` reads (conv2's as its A). A
+    caller packs once per weight set (``packed=``)."""
     k1, k2 = stem_p[0], stem_p[3]
-    mats = (k1.reshape(27, 32), k2.reshape(288, 64), skip_p[0].reshape(64, 128),
-            *(p[3].reshape(p[3].shape[2], p[3].shape[3]) for p in sep_p))
+    mats = (k1.reshape(27, 32), k2.reshape(288, 64))
+    if sep_p:
+        mats += (skip_p[0].reshape(64, 128),
+                 *(p[3].reshape(p[3].shape[2], p[3].shape[3]) for p in sep_p))
     return torch.cat([_swizzled(m.to(x.device, torch.bfloat16), kp)
                       for m, (_, _, kp) in zip(mats, OPERANDS)])
 
@@ -248,7 +344,7 @@ def fused_stem_block1_plain(x, stem_p, sep_p, skip_p):
 
 
 # ------------------------------------------------------------------ kernels
-_counts = {}  # id of a loaded library -> (its param counts, its operand count)
+_counts = {}  # id of a loaded library -> (its param counts, its operand counts)
 
 
 def _lib():
@@ -256,17 +352,16 @@ def _lib():
     if id(lib) in _counts:
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.entry_stem.argtypes = [p, p, p, i, i, i, i, p]
-    lib.entry_stem_block1.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.entry_stem.argtypes = lib.entry_stem_block1.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.entry_stem.restype = lib.entry_stem_block1.restype = i
     lib.entry_param_count.argtypes = [i]
     lib.entry_param_count.restype = i
-    lib.entry_operand_count.argtypes = []
+    lib.entry_operand_count.argtypes = [i]
     lib.entry_operand_count.restype = i
-    lib.entry_plan.argtypes = [i, i, i, i, p]
-    lib.entry_plan.restype = i
+    lib.entry_plan.argtypes = lib.stem_plan.argtypes = [i, i, i, i, p]
+    lib.entry_plan.restype = lib.stem_plan.restype = i
     _counts[id(lib)] = ((lib.entry_param_count(0), lib.entry_param_count(1)),
-                        lib.entry_operand_count())
+                        (lib.entry_operand_count(0), lib.entry_operand_count(1)))
     return lib
 
 
@@ -277,6 +372,16 @@ def kernel_entry_plan(n, h, w, sms=0):
     rc = _lib().entry_plan(n, h, w, sms, out)
     if rc != 0:
         raise ValueError(f"entry_plan: rc {rc}")
+    return list(out)
+
+
+def kernel_stem_plan(n, h, w, sms=0):
+    """``stem_plan`` as the compiled source reports it (needs ``nvcc``),
+    flattened as ``stem_plan_ints``; ``sms`` <= 0: the current device's."""
+    out = (ctypes.c_int * 32)()
+    rc = _lib().stem_plan(n, h, w, sms, out)
+    if rc != 0:
+        raise ValueError(f"stem_plan: rc {rc}")
     return list(out)
 
 
@@ -319,8 +424,8 @@ def _check(x, name, mult):
 
 
 def _launch(entry, block1, x, prm, out, ops=None):
-    """Launch ``entry`` on ``x`` with the f32 buffer ``prm`` and, for the
-    bf16 stem + block1, the operand buffer ``ops``."""
+    """Launch ``entry`` on ``x`` with the f32 buffer ``prm`` and, in bf16,
+    the operand buffer ``ops``."""
     if prm.device != x.device or prm.dtype != torch.float32:
         raise ValueError(f"packed weights: {prm.dtype} on {prm.device}, input on {x.device}")
     lib = _lib()
@@ -329,16 +434,16 @@ def _launch(entry, block1, x, prm, out, ops=None):
     if prm.numel() != want:
         raise ValueError(f"packed parameters: {prm.numel()} floats, kernel reads {want}")
     n, h, w, _ = x.shape
-    wgmma = block1 and x.dtype == torch.bfloat16
+    wgmma = x.dtype == torch.bfloat16
     if wgmma:
-        if not stem_block1_supported(h, w, 3):
+        supported = stem_block1_supported if block1 else stem_supported
+        if not supported(h, w, 3):
             raise ValueError(f"{entry}: ({n}, {h}, {w}, 3) is outside the kernel's gate")
+        want = operands[int(block1)]
         if (ops is None or ops.device != x.device or ops.dtype != torch.bfloat16
-                or ops.numel() != operands):
-            raise ValueError(f"packed operands: want {operands} bf16 on {x.device}")
-    bufs = (x.data_ptr(), out.data_ptr(), prm.data_ptr())
-    if block1:
-        bufs += (ops.data_ptr() if wgmma else None,)
+                or ops.numel() != want):
+            raise ValueError(f"packed operands: want {want} bf16 on {x.device}")
+    bufs = (x.data_ptr(), out.data_ptr(), prm.data_ptr(), ops.data_ptr() if wgmma else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, entry)(*bufs, n, h, w, int(x.dtype == torch.bfloat16), stream)
@@ -348,15 +453,21 @@ def _launch(entry, block1, x, prm, out, ops=None):
 
 def fused_stem(x, k1, a1, b1, k2, a2, b2, packed=None):
     """Fused stem: (N, H, W, 3) -> (N, H/2, W/2, 64). ``packed``: the
-    ``pack_weights`` buffer of these weights for ``x``, or None."""
+    ``pack_weights`` buffer of these weights for ``x``, or the pair (that
+    buffer, their ``pack_operands`` buffer in the stem's form), or None.
+    bf16 reads both; given the first alone it packs the second."""
     if x.device.type == "cpu":
         return fused_stem_plain(x, k1, a1, b1, k2, a2, b2)
     _check(x, "fused_stem", 2)
     n, h, w, _ = x.shape
     out = torch.empty((n, h // 2, w // 2, 64), dtype=x.dtype, device=x.device)
-    if packed is None:
-        packed = pack_weights(x, (k1, a1, b1, k2, a2, b2))
-    _launch("entry_stem", False, x, packed, out)
+    stem_p = (k1, a1, b1, k2, a2, b2)
+    prm, ops = packed if isinstance(packed, tuple) else (packed, None)
+    if prm is None:
+        prm = pack_weights(x, stem_p)
+    if ops is None and x.dtype == torch.bfloat16:
+        ops = pack_operands(x, stem_p)
+    _launch("entry_stem", False, x, prm, out, ops)
     fused_stem.launches += 1
     return out
 
