@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--kernels-only | --probe | --probe-dot
+    python3 chip_smoke.py [--kernels-only | --train | --probe | --probe-dot
                            | --entry [--baseline=<path>] | --entry-probe[=stem|block1]
                            | --sepconv [--baseline=<path>] | --sepconv-probe
                            | --flash-fwd [--baseline=<path>] | --flash-fwd-probe
@@ -115,11 +115,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
    gradients' bar), bf16 gradients against f32, then the bf16 step at
    batch 16 with the counters read around it (flash forward, dq and
    dk/dv once each), steps of both routes in turns, peak memory, the step
-   with ``cudnn.benchmark``, one profile each.
+   with ``cudnn.benchmark``, one profile each;
+8. flagship training (``flagship_train``): DeepLabv3+ / Xception-65 at
+   full width from the flagship YAML on a Cityscapes tree written to a
+   temporary directory (32 train, 4 val pairs of 1024x2048, removed at the
+   end), 768x768 crops augmented on the card: the bf16 entry kernel at
+   (2, 768, 768, 3) against its plain version and timed at (1, 768, 768,
+   3); ``DeviceAugment`` on the card against the CPU; the train step alone
+   at batches 8 and 16 for ``TPU.REMAT`` none, dots and full (peak memory,
+   steps in turns, the modes' bf16 losses and f32 updates against each
+   other, no kernel launched, one profile); ``tools.train.main`` as a user
+   runs it (2 epochs of 2 steps at batch 16, a snapshot and a validation
+   each epoch, the entry kernel once an eval batch and never in training),
+   then ``--resume`` for a third epoch; the trained model's validation in
+   f32 through the entry kernel against the plain entry modules.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.
 
+``--train`` builds ``csrc/entrychain.cu`` alone, checks its plans and
+runs phase 8 only (the rehearsal after an edit of the training path).
 ``--probe`` does none of this: it builds ``csrc/sepconv.cu`` with its
 clock64 probe and prints, for each main sepconv case in bf16, the share
 of the cycles that the taps, the products (for the wgmma kernel: the
@@ -191,6 +206,7 @@ their SASS opcode counts and the card's ``mma.sync`` m16n8k8 tf32 and
 """
 
 import dataclasses
+import functools
 import gzip
 import json
 import math
@@ -384,8 +400,10 @@ def check_entry_kernels(torch, entrychain, card, dev, gen):
 
 
 # The image shapes whose plans the source and the mirror must agree on: the
-# flagship's, two images, a ragged last tile row (H/4 = 260), one tile tall.
-ENTRY_PLAN_SHAPES = [(1, 1024, 2048), (2, 1024, 2048), (1, 1040, 2048), (1, 32, 64)]
+# flagship's, two images, a ragged last tile row (H/4 = 260), one tile tall,
+# and the Trainer's validation at the 768 crop, two images.
+ENTRY_PLAN_SHAPES = [(1, 1024, 2048), (2, 1024, 2048), (1, 1040, 2048), (1, 32, 64),
+                     (2, 768, 768)]
 # and the stem's: the flagship's, two images, H/2 = 520 (65 tile rows), the
 # smallest image, a last tile column of 18 and of 2 pixels (W/2 = 80, 64)
 STEM_PLAN_SHAPES = [(1, 1024, 2048), (2, 1024, 2048), (1, 1040, 2048), (1, 32, 32),
@@ -2700,6 +2718,539 @@ def train_models(torch, card, dev, defaults, counts, profile_call):
     return results
 
 
+# ------------------------------------------------------ 8. flagship training
+CITY_VALID_IDS = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31, 32, 33)
+CITY_TRAIN, CITY_VAL = 32, 4  # pairs of 1024x2048 in the temporary tree
+TRAIN_BATCHES = (8, 16)  # bench.py's bench_train batch, then the YAML's
+RUN_NAME = "deeplabv3_plus_xception65_cityscapes_chip_smoke"  # the run's directory name
+RATE_COPIES = 4  # the rate's epoch: the train pairs linked 4 times, 8 steps of 16
+
+
+def link_cityscapes(src, dst, copies):
+    """A Cityscapes tree under ``dst`` whose train split holds each train
+    pair of ``src`` ``copies`` times under other names (hard links) and
+    whose val split is ``src``'s. The port keeps no decoded cache, so the
+    loader decodes every copy anew."""
+    for sub in ("leftImg8bit", "gtFine"):
+        for split in ("train", "val"):
+            for city in sorted(os.listdir(os.path.join(src, sub, split))):
+                folder = os.path.join(src, sub, split, city)
+                out = os.path.join(dst, sub, split, city)
+                os.makedirs(out, exist_ok=True)
+                for name in sorted(os.listdir(folder)):
+                    for c in range(copies if split == "train" else 1):
+                        city_, k, rest = name.split("_", 2)
+                        os.link(os.path.join(folder, name),
+                                os.path.join(out, f"{city_}_{int(k) + 1000 * c:06d}_{rest}"))
+
+
+def read_json(path):
+    """The JSON object in ``path``, or None where there is no such file."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def write_cityscapes(root, n_train, n_val, seed=0):
+    """A Cityscapes tree under ``root``: ``n_train`` train and ``n_val`` val
+    pairs of 1024x2048 PNGs from ``seed`` (two cities a split), blobby
+    images whose colours follow raw label ids drawn from the 19 valid ids
+    and 0 (road the most common), written by 8 threads."""
+    import concurrent.futures as cf
+
+    import numpy as np
+    from PIL import Image
+
+    ids = np.array((0,) + CITY_VALID_IDS, np.uint8)
+    weights = np.full(len(ids), 1.0)
+    weights[0], weights[1] = 3.0, 12.0  # unlabelled, road
+    weights /= weights.sum()
+    palette = np.random.RandomState(seed).randint(0, 256, (256, 3)).astype(np.float32)
+
+    def one(split, k):
+        rng = np.random.RandomState(seed + 1 + k + (0 if split == "train" else 100_000))
+        labels = ids[rng.choice(len(ids), (1024 // 64, 2048 // 64), p=weights)]
+        labels = np.kron(labels, np.ones((64, 64), np.uint8))
+        image = palette[labels] + rng.randn(1024, 2048, 3).astype(np.float32) * 12.0
+        city = f"city{k % 2}"
+        stem = f"{city}_{k:06d}_000019"
+        for sub, name, arr in (("leftImg8bit", f"{stem}_leftImg8bit.png",
+                                image.clip(0, 255).astype(np.uint8)),
+                               ("gtFine", f"{stem}_gtFine_labelIds.png", labels)):
+            folder = os.path.join(root, sub, split, city)
+            os.makedirs(folder, exist_ok=True)
+            Image.fromarray(arr).save(os.path.join(folder, name), compress_level=1)
+
+    jobs = [("train", k) for k in range(n_train)] + [("val", k) for k in range(n_val)]
+    with cf.ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(one, *job) for job in jobs]:
+            f.result()
+
+
+def check_entry_768(torch, entrychain, card, dev, gen):
+    """The bf16 entry kernel at the Trainer's validation shapes: two
+    images of 768x768 against the plain version (phase 3's bar), then one
+    image timed beside its bound and the plain version."""
+    stem_p, sep_p, skip_p = entry_params(torch, gen, dev)
+    x = torch.randn((2, 768, 768, 3), generator=gen).to(dev, torch.bfloat16)
+    ref = entrychain.fused_stem_block1_plain(x, stem_p, sep_p, skip_p).float()
+    got = entrychain.fused_stem_block1(x, stem_p, sep_p, skip_p).float()
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    max_err, max_ref = err.max().item(), ref.abs().max().item()
+    mean_err, mean_ref = err.mean().item(), ref.abs().mean().item()
+    ok = (torch.isfinite(got).all().item() and max_err <= 3e-2 * max_ref
+          and mean_err <= 2e-3 * mean_ref)
+    x1 = x[:1].contiguous()
+    packed = entrychain.pack_weights(x1, stem_p, sep_p, skip_p)
+    ops = entrychain.pack_operands(x1, stem_p, sep_p, skip_p)
+    out = torch.empty((1, 192, 192, 128), dtype=x.dtype, device=dev)
+
+    def launch():
+        entrychain._launch("entry_stem_block1", True, x1, packed, out, ops)
+    ms, hidden = median_ms(torch, launch), median_ms(torch, launch, hide_launch=True)
+    plain_ms = median_ms(torch, lambda: entrychain.fused_stem_block1_plain(x1, stem_p, sep_p,
+                                                                           skip_p))
+    bound_ms, bound_by = entry_bound(1, 768, 768, True, "bfloat16", 2)
+    print(f"{card} fused_stem_block1 bfloat16 (2, 768, 768, 3): max|err| {max_err:.6g} (max|ref| "
+          f"{max_ref:.6g}), mean|err| {mean_err:.6g} (mean|ref| {mean_ref:.6g}) [max|err| <= 3e-2 "
+          f"max|ref|, mean|err| <= 2e-3 mean|ref|: {'ok' if ok else 'FAIL'}]; (1, 768, 768, 3): "
+          f"kernel {ms:.4f} ms ({hidden:.4f} launch hidden), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    if not ok:
+        fail("fused_stem_block1 bf16 disagrees with its plain version at (2, 768, 768, 3)")
+    return dict(max_abs_err=max_err, ms=ms, ms_launch_hidden=hidden, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def city_batches(torch, root, n, dev):
+    """``n`` device-augment items of the Cityscapes train split (as the
+    Trainer builds them) stacked into one batch dict on ``dev``."""
+    import concurrent.futures as cf
+
+    import numpy as np
+
+    from segmentron_tpu_torch.data.dataloader import CitySegmentation
+    from segmentron_tpu_torch.data.device_input import DeviceInput
+
+    ds = CitySegmentation(root=root, split="train", mode="train")
+    ds.device_input = DeviceInput(ds, ds.DEVICE_CANVAS)
+    with cf.ThreadPoolExecutor(8) as pool:
+        items = [it[0] for it in pool.map(ds.__getitem__, range(n))]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items])).to(dev) for k in items[0]}
+    return batch, ds.device_input.pad_label
+
+
+def flagship_train(torch, card, dev, defaults, counts, profile_call):
+    """Phase 8: DeepLabv3+ / Xception-65 training at full width (16 middle
+    blocks, output stride 16) from the flagship YAML on a Cityscapes tree
+    written to a temporary directory (``CITY_TRAIN`` train and ``CITY_VAL``
+    val pairs of 1024x2048), 768x768 crops augmented on the device.
+
+    (a) The bf16 entry kernel at the validation shapes (``check_entry_768``).
+    (b) ``DeviceAugment`` on the card against its plain version on the CPU
+    on one batch dict: normalized images within 1e-4 of max|value| (the
+    same f32 products, other summation orders), masks equal. (c) The step
+    alone (``make_train_step`` with the augment) at batches 8 and 16, bf16,
+    for ``TPU.REMAT`` none, dots and full: peak memory, then the median of
+    10 steps by CUDA events, 5 a mode in turns in two rounds; the launch
+    counters around one step (no kernel in training); one profiled step at
+    batch 16. Cross-checks from the same weights, batch and dropout state:
+    in bf16 every mode's loss equal to "none"'s within 1e-3 relative (the
+    forward is the same in every mode; only the backward recomputes), in
+    f32 at batch 2 (TF32 off) every mode's update of all parameters within
+    relative L2 max(1e-4, 4 x the distance of a repeated "none" step) of
+    "none"'s, and the BN running statistics within 1e-5 of max|value|:
+    cuDNN's algorithms may differ between calls (and its weight gradients
+    add with atomics), so equality is not required on the card. (d) The
+    entry point as a user runs it: ``tools.train.main`` with the flagship
+    YAML, ``TRAIN.EPOCHS 2``, ``TRAIN.BACKBONE_PRETRAINED False`` and the
+    least-memory ``TPU.REMAT`` that fits batch 16 ("none" if it fits):
+    4 steps of batch 16, a snapshot and a validation each epoch, the launch
+    counters set to 0 before it and read after it (the entry kernel 0
+    times in training, once an eval batch in validation); then ``--resume``
+    with ``TRAIN.EPOCHS 3``: the step counter goes on at 4, ``best_meta``
+    is read, epoch 3 runs. The log goes to ``OUT_DIR``; its loss, lr and
+    img/s lines are printed. (e) The validation images in f32 through the
+    entry kernel against the plain entry modules, for the trained model and
+    for the seed's (the trained one predicts road nearly everywhere after
+    six steps): logits within 1e-3 of max(1, max|logit|) (phase 4's bar),
+    argmax agreement >= 0.995, the classes each route predicts (the seed
+    model must predict more than one) and both confusion matrices. (f) The
+    Trainer's rate over one epoch of 8 steps of batch 16 (``tools.train``
+    again, ``--skip-val``, 128 train items: each written pair linked 4
+    times), img/s per step and the median of steps 3-8, beside one item's
+    host decode time on one thread."""
+    import contextlib
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from segmentron_tpu_torch.config import cfg
+    from segmentron_tpu_torch.engine import make_train_step
+    from segmentron_tpu_torch.engine import trainer as trainer_mod
+    from segmentron_tpu_torch.models import get_segmentation_model
+    from segmentron_tpu_torch.ops import entrychain
+    from segmentron_tpu_torch.ops.preprocess import DeviceAugment
+    from segmentron_tpu_torch.solver import get_lr_scheduler, get_optimizer, get_segmentation_loss
+    from segmentron_tpu_torch.tools import train as train_tool
+    from segmentron_tpu_torch.utils import confusion_matrix_update
+
+    zero_counts, read_counts = counts
+    results = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        root = os.path.join(tmp, "datasets", "cityscapes")
+        t0 = time.perf_counter()
+        write_cityscapes(root, CITY_TRAIN, CITY_VAL)
+        print(f"{card} flagship train: wrote {CITY_TRAIN} train and {CITY_VAL} val pairs of "
+              f"1024x2048 PNGs in {time.perf_counter() - t0:.1f} s")
+        gen = torch.Generator().manual_seed(8)
+        results["entry_768"] = check_entry_768(torch, entrychain, card, dev, gen)
+
+        load_cfg(cfg, defaults, FLAGSHIP, [])
+        crop, batch_max = int(cfg.TRAIN.CROP_SIZE), int(cfg.TRAIN.BATCH_SIZE)
+        batch, pad = city_batches(torch, root, batch_max, dev)
+        augment = DeviceAugment(crop, list(cfg.DATASET.MEAN), list(cfg.DATASET.STD), pad)
+
+        # ---- (b) the augment on the card against the CPU
+        img_d, mask_d = augment.apply(batch)
+        img_c, mask_c = augment.apply({k: v.cpu() for k, v in batch.items()})
+        aug_err = (img_d.cpu() - img_c).abs().max().item()
+        aug_scale = img_c.abs().max().item()
+        masks_equal = torch.equal(mask_d.cpu(), mask_c)
+        aug_ms = median_ms(torch, lambda: augment.apply(batch), n=10, warmup=2)
+        geom = batch["aug_geom"].cpu()
+        print(f"{card} DeviceAugment batch {batch_max} of {tuple(batch['image'].shape[1:])} "
+              f"uint8 -> {crop}x{crop}: card vs CPU max|err| {aug_err:.6g} (max|value| "
+              f"{aug_scale:.6g}) [<= 1e-4 max|value|], masks equal {masks_equal}; flips "
+              f"{int(geom[:, 6].sum())}, padded {int((torch.minimum(geom[:, 2], geom[:, 3]) < crop).sum())}, "
+              f"blurred {int((batch['aug_sigma'] > 0).sum())}; {aug_ms:.3f} ms on the card")
+        if not (aug_err <= 1e-4 * aug_scale and masks_equal):
+            fail("DeviceAugment on the card differs from its plain version on the CPU")
+        results["augment"] = dict(max_abs_err=aug_err, scale=aug_scale, ms=aug_ms)
+        del img_d, mask_d, img_c, mask_c
+
+        # ---- (c) the step alone, per remat mode
+        model = get_segmentation_model(dev, generator=torch.Generator().manual_seed(int(cfg.SEED)))
+        loss_fn = get_segmentation_loss(
+            cfg.MODEL.MODEL_NAME, use_ohem=cfg.SOLVER.OHEM, aux=cfg.SOLVER.AUX,
+            aux_weight=cfg.SOLVER.AUX_WEIGHT, loss_name=cfg.SOLVER.LOSS_NAME,
+            ohem_thresh=cfg.SOLVER.OHEM_THRESH, ohem_min_kept=cfg.SOLVER.OHEM_MIN_KEPT)
+        schedule = get_lr_scheduler(cfg, 100)
+        state0 = {k: v.clone() for k, v in model.state_dict().items()}
+        generator = torch.Generator(device=dev).manual_seed(int(cfg.SEED))
+
+        def make_step(dtype, remat):
+            model.load_state_dict(state0)
+            return make_train_step(model, loss_fn, get_optimizer(cfg, model, schedule), schedule,
+                                   compute_dtype=dtype, remat=remat, device=dev,
+                                   generator=generator, augment=augment)
+
+        def sub(n):
+            return {k: v[:n] for k, v in batch.items()}
+
+        modes = ("none", "dots", "full")
+        step = make_step(cfg.TPU.COMPUTE_DTYPE, "none")
+        zero_counts()
+        step(sub(2))
+        torch.cuda.synchronize()
+        step_launches = read_counts()
+        print(f"{card} train step launches (one bf16 step): {step_launches} [none]")
+        if any(step_launches.values()):
+            fail(f"a train step launched a kernel: {step_launches}")
+        g0 = generator.get_state()
+        losses16 = {}
+        for mode in modes:  # the same weights, batch and dropout state
+            step = make_step(cfg.TPU.COMPUTE_DTYPE, mode)
+            generator.set_state(g0)
+            losses16[mode] = step(sub(2)).item()
+        rel16 = {m: abs(losses16[m] - losses16["none"]) / abs(losses16["none"]) for m in modes}
+        print(f"{card} train step bf16 batch 2: loss per remat mode {losses16} [rel to none "
+              f"<= 1e-3: {rel16}]")
+        if max(rel16.values()) > 1e-3 or not all(math.isfinite(v) for v in losses16.values()):
+            fail("the remat modes' bf16 losses differ")
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        updates, stats = {}, {}
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        for mode in ("none", "dots", "full", "none"):
+            step = make_step("float32", mode)
+            generator.set_state(g0)
+            step(sub(2))
+            u = torch.cat([(p.detach() - p0[n]).flatten() for n, p in model.named_parameters()])
+            s = torch.cat([b.flatten() for n, b in model.named_buffers() if "running" in n])
+            if mode in updates:
+                updates["none again"], stats["none again"] = u, s
+            else:
+                updates[mode], stats[mode] = u, s
+        torch.backends.cudnn.allow_tf32 = True
+        unorm = updates["none"].norm().item()
+        rel_u = {m: (updates[m] - updates["none"]).norm().item() / unorm for m in updates}
+        rel_s = {m: (stats[m] - stats["none"]).abs().max().item()
+                 / stats["none"].abs().max().item() for m in stats}
+        bar = max(1e-4, 4 * rel_u["none again"])
+        print(f"{card} train step f32 batch 2 (TF32 off): update rel L2 vs none {rel_u} [<= "
+              f"{bar:.3g}], running statistics max|diff| / max|value| {rel_s} [<= 1e-5]")
+        if max(rel_u[m] for m in ("dots", "full")) > bar or max(rel_s.values()) > 1e-5:
+            fail("the remat modes' f32 updates or BN statistics differ from none's")
+        del updates, stats, p0
+
+        step = make_step(cfg.TPU.COMPUTE_DTYPE, "none")
+        peaks, step_ms = {}, {}
+        for n in TRAIN_BATCHES:
+            fits = []
+            for mode in modes:
+                step.remat = mode
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                try:
+                    for _ in range(2):
+                        step(sub(n))
+                    torch.cuda.synchronize()
+                    peaks[(n, mode)] = torch.cuda.max_memory_allocated() / 2**30
+                    fits.append(mode)
+                except torch.cuda.OutOfMemoryError:
+                    peaks[(n, mode)] = None
+                    print(f"{card} train step batch {n} remat {mode}: out of memory")
+            times = {mode: [] for mode in fits}
+            for rnd in range(2):
+                for mode in (fits if rnd == 0 else fits[::-1]):
+                    step.remat = mode
+                    for _ in range(5):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        loss = step(sub(n))
+                        end.record()
+                        end.synchronize()
+                        times[mode].append(start.elapsed_time(end))
+                    if not math.isfinite(loss.item()):
+                        fail(f"train step batch {n} remat {mode}: non-finite loss")
+            for mode in fits:
+                step_ms[(n, mode)] = statistics.median(times[mode])
+            print(f"{card} train step bf16, batch {n} of {crop}x{crop}, device augment in the "
+                  f"step, ms (img/s), median of 10 in turns; peak memory: " + "; ".join(
+                      f"{m} {step_ms[(n, m)]:.3f} ({1e3 * n / step_ms[(n, m)]:.2f}) "
+                      f"{[round(v, 2) for v in times[m]]} {peaks[(n, m)]:.3f} GiB"
+                      if m in fits else f"{m} out of memory" for m in modes))
+        remat = next((m for m in modes if step_ms.get((batch_max, m)) is not None), None)
+        if remat is None:
+            fail(f"no TPU.REMAT mode fits batch {batch_max}")
+        step.remat = remat
+        profile = profile_call(lambda: step(sub(batch_max)),
+                               f"flagship train step, bf16, batch {batch_max}, remat {remat}",
+                               "chip_smoke_profile_flagship_train.txt")
+        results["step"] = dict(
+            remat_used=remat, losses_bf16=losses16, update_rel_l2_f32=rel_u,
+            stats_rel_f32=rel_s, launches=step_launches,
+            ms={f"{n} {m}": v for (n, m), v in step_ms.items()},
+            peak_gib={f"{n} {m}": v for (n, m), v in peaks.items()}, profile=profile)
+        del model, step, state0, batch
+        torch.cuda.empty_cache()
+
+        # ---- (d) the entry point, then resume
+        real_validate, real_resume = trainer_mod.Trainer.validate, trainer_mod.Trainer._resume
+        seen = dict(val=[], trainers=[], resumed=[])
+
+        def validate(self):
+            before = read_counts()["fused_stem_block1"]
+            out = real_validate(self)
+            torch.cuda.synchronize()
+            seen["val"].append((read_counts()["fused_stem_block1"] - before, len(self.val_loader)))
+            seen["trainers"].append(self)
+            return out
+
+        def resume(self):
+            real_resume(self)
+            seen["resumed"].append((self.train_step.updates, self.start_epoch, self.best_miou))
+
+        save_dir, log_dir = os.path.join(tmp, "runs"), os.path.join(tmp, "logs")
+        meta1 = None
+        opts = ["ROOT_PATH", tmp, "TIME_STAMP", "chip_smoke", "TRAIN.EPOCHS", "2",
+                "TRAIN.BACKBONE_PRETRAINED", "False", "TRAIN.MODEL_SAVE_DIR", save_dir,
+                "TRAIN.LOG_SAVE_DIR", log_dir, "TPU.REMAT", remat]
+        log_path = os.path.join(OUT_DIR, "chip_smoke_flagship_train_log.txt")
+        runs = {}
+        trainer_mod.Trainer.validate, trainer_mod.Trainer._resume = validate, resume
+        try:
+            with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+                for name, extra, flags in (("train", [], []),
+                                           ("resume", ["TRAIN.EPOCHS", "3"], ["--resume"])):
+                    reset_cfg(cfg, defaults)
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    final = train_tool.main(["--config-file", FLAGSHIP, "--log-iter", "2", *flags,
+                                             *opts, *extra])
+                    torch.cuda.synchronize()
+                    runs[name] = dict(final_loss=final, seconds=time.perf_counter() - t0,
+                                      launches=read_counts())
+                    if name == "train":
+                        meta1 = read_json(os.path.join(save_dir, RUN_NAME, "snapshots_best",
+                                                       "best_meta.json"))
+        finally:
+            trainer_mod.Trainer.validate, trainer_mod.Trainer._resume = real_validate, real_resume
+        run_dir = os.path.join(save_dir, RUN_NAME)
+        log_text = open(log_path).read()
+        keep = re.compile(r"Epoch \d+/\d+ iter|Epoch \d+: |Validation epoch|Resumed from|"
+                          r"New best|Model params|Device input|Snapshot")
+        for line in log_text.splitlines():
+            if keep.search(line):
+                print(f"{card} {line.split(' INFO: ')[-1]}")
+        snapshots = sorted(os.listdir(os.path.join(run_dir, "snapshots")))
+        meta_path = os.path.join(run_dir, "snapshots_best", "best_meta.json")
+        meta = read_json(meta_path)
+        trainer = seen["trainers"][-1]
+        n_val = len(trainer.val_loader)
+        val_launches = [v for v, _ in seen["val"]]
+        train_launches = {name: r["launches"]["fused_stem_block1"] for name, r in runs.items()}
+        ips = [float(m) for m in re.findall(r"\| ([0-9.]+) img/s", log_text)]
+        waits = re.findall(r"Epoch (\d+): (\d+) steps in ([0-9.]+) s, ([0-9.]+) s of it waiting",
+                           log_text)
+        print(f"{card} flagship train through tools.train (remat {remat}): final losses "
+              f"{[round(r['final_loss'], 6) for r in runs.values()]}, {[round(r['seconds'], 1) for r in runs.values()]} s; "
+              f"snapshots {snapshots}; best_meta after the first run {meta1}, after the resumed "
+              f"run {meta}; resumed at (step, epoch, best mIoU) "
+              f"{seen['resumed']}; entry kernel launches per validation {val_launches} "
+              f"({n_val} eval batches each), per run {train_launches}; img/s per logged step "
+              f"{ips}; loader wait per epoch {waits}")
+        want_val = [n_val] * 3
+        other = {k: v for r in runs.values() for k, v in r["launches"].items()
+                 if k != "fused_stem_block1" and v}
+        if not all(math.isfinite(r["final_loss"]) for r in runs.values()):
+            fail("flagship train: non-finite loss")
+        if snapshots != ["step_2.pt", "step_4.pt", "step_6.pt"] or meta1 is None or meta is None:
+            fail("flagship train: snapshots or best_meta.json missing")
+        if val_launches != want_val or sum(train_launches.values()) != sum(want_val) or other:
+            fail(f"flagship train: entry kernel launches {val_launches} in validation, "
+                 f"{train_launches} a run (want {want_val}: none in training), others {other}")
+        if seen["resumed"] != [(4, 2, meta1["miou"])]:
+            fail(f"flagship train: resume read {seen['resumed']}, best_meta {meta1}")
+        results["trainer"] = dict(remat=remat, runs=runs, snapshots=snapshots,
+                                  best_meta=[meta1, meta],
+                                  resumed=seen["resumed"], validation_launches=val_launches,
+                                  img_per_s=ips, loader_wait=waits)
+
+        # ---- (e) validation through the kernel against the plain twin, f32,
+        # on the trained model and on the seed's: six steps from scratch
+        # leave a model that predicts road nearly everywhere, where an
+        # argmax agreement tells little, so the logits are held too and the
+        # seed model must predict more than one class
+        models = {"trained": trainer.model,
+                  "seed": get_segmentation_model(
+                      dev, generator=torch.Generator().manual_seed(int(cfg.SEED)))}
+        twin = {}
+        torch.backends.cudnn.allow_tf32 = False
+        for name, model in models.items():
+            model.eval()
+            bb = model.backbone
+            logits, cms = {}, {}
+            with torch.no_grad():
+                for route in ("block1", False):
+                    bb.fused_stem = route
+                    zero_counts()
+                    cms[route], logits[route] = 0, []
+                    for b in trainer.val_loader:
+                        out = model(b["image"])[0]
+                        cms[route] = cms[route] + confusion_matrix_update(
+                            out.argmax(-1), b["mask"], trainer.nclass).cpu().numpy()
+                        logits[route].append(out)
+                    launches = read_counts()["fused_stem_block1"]
+                    if launches != (n_val if route else 0):
+                        fail(f"f32 validation {name} route {route}: {launches} entry kernel "
+                             "launches")
+            bb.fused_stem = cfg.TPU.FUSED_STEM
+            got, ref = torch.cat(logits["block1"]), torch.cat(logits[False])
+            agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+            scale = max(1.0, ref.abs().max().item())
+            err = (got - ref).abs().max().item()
+            classes = {str(r): len(torch.unique(torch.cat(logits[r]).argmax(-1)))
+                       for r in ("block1", False)}
+            moved = int(np.abs(cms["block1"] - cms[False]).sum()) // 2
+            print(f"{card} flagship validation f32, {name} model ({n_val} images of "
+                  f"{crop}x{crop}): entry kernel vs plain entry modules: logits max|err| "
+                  f"{err:.6g} (scale max(1, max|logit|) {scale:.6g}) [<= 1e-3 scale, phase 4's "
+                  f"bar], argmax agreement {agree:.6f} [>= 0.995], classes predicted "
+                  f"{classes}; confusion matrices total {int(cms[False].sum())}, {moved} "
+                  f"pixels in other cells")
+            if not (torch.isfinite(got).all() and err <= 1e-3 * scale and agree >= 0.995):
+                fail(f"flagship validation, {name} model: the entry kernel disagrees with the "
+                     "plain entry modules")
+            if name == "seed" and classes["False"] < 2:
+                fail("flagship validation: the seed model predicts one class, so the twin "
+                     "check cannot tell the routes apart")
+            twin[name] = dict(argmax_agreement=agree, logits_max_abs_err=err, scale=scale,
+                              classes=classes, cm_pixels_moved=moved)
+            del logits, got, ref
+        torch.backends.cudnn.allow_tf32 = True
+        results["validation_twin"] = twin
+        del models, model
+
+        # ---- (f) the Trainer's rate over an epoch of 8 steps
+        rate_tmp = os.path.join(tmp, "rate")
+        link_cityscapes(root, os.path.join(rate_tmp, "datasets", "cityscapes"), RATE_COPIES)
+        real_train = trainer_mod.Trainer.train
+        rate_trainers = []
+
+        def train(self):
+            rate_trainers.append(self)
+            return real_train(self)
+
+        trainer_mod.Trainer.train = train
+        try:
+            with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+                reset_cfg(cfg, defaults)
+                t0 = time.perf_counter()
+                train_tool.main(["--config-file", FLAGSHIP, "--log-iter", "1", "--skip-val",
+                                 "ROOT_PATH", rate_tmp, "TIME_STAMP", "chip_smoke_rate",
+                                 "TRAIN.EPOCHS", "1", "TRAIN.BACKBONE_PRETRAINED", "False",
+                                 "TRAIN.MODEL_SAVE_DIR", os.path.join(rate_tmp, "runs"),
+                                 "TRAIN.LOG_SAVE_DIR", os.path.join(rate_tmp, "logs"),
+                                 "TPU.REMAT", remat])
+                torch.cuda.synchronize()
+                rate_s = time.perf_counter() - t0
+        finally:
+            trainer_mod.Trainer.train = real_train
+        rate_text = open(log_path).read()[len(log_text):]
+        step_ips = [float(m) for m in re.findall(r"\| ([0-9.]+) img/s", rate_text)]
+        epoch = re.findall(r"Epoch 1: (\d+) steps in ([0-9.]+) s, ([0-9.]+) s of it waiting",
+                           rate_text)
+        rate_trainer = rate_trainers[-1]
+        dataset = rate_trainer.train_dataset
+        decode_ms = []
+        for i in range(8):  # one item at a time on this thread, as one loader worker
+            t0 = time.perf_counter()
+            dataset[i]
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+        steady = statistics.median(step_ips[2:]) if len(step_ips) > 2 else float("nan")
+        workers = int(cfg.DATASET.WORKERS)
+        print(f"{card} Trainer rate over one epoch of {len(step_ips)} steps of batch "
+              f"{batch_max} ({len(dataset)} train items, {RATE_COPIES} links of each written "
+              f"pair, each decoded anew), remat {remat}, DATASET.WORKERS {workers}, "
+              f"TPU.PREFETCH {int(cfg.TPU.PREFETCH)}: img/s per step {step_ips}, median of "
+              f"steps 3-{len(step_ips)} {steady:.2f}; epoch (steps, s, s waiting for the "
+              f"loader) {epoch}; run {rate_s:.1f} s; one item's host decode and draw on one "
+              f"thread, ms {[round(v, 1) for v in decode_ms]} (median "
+              f"{statistics.median(decode_ms):.1f}: {workers} workers give at most "
+              f"{1e3 * workers / statistics.median(decode_ms):.2f} img/s)")
+        if len(step_ips) != len(dataset) // batch_max or not math.isfinite(steady):
+            fail(f"Trainer rate: {len(step_ips)} steps logged for {len(dataset)} items")
+        results["trainer_rate"] = dict(
+            img_per_s_per_step=step_ips, img_per_s_steady=steady, epoch=epoch,
+            seconds=rate_s, decode_ms=decode_ms, workers=workers)
+        del rate_trainer, rate_trainers, dataset
+        del trainer, seen
+        torch.cuda.empty_cache()
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results
+
+
 # ------------------------------------------------ the ceiling probe's kernel
 PROBE_DOT_SOURCE = "segmentron_tpu_torch/csrc/probe_dot.cu"
 PROBE_DOT_REPLACES = "tools/ceiling_probe.py:287 (kern; pallas_dot :262, pallas_call :298)"
@@ -3002,6 +3553,45 @@ def probe_dot_breakdown(torch, card):
     return 0
 
 
+def profile_thunk(torch, card, thunk, label, path, match=None):
+    """Kernel time by name and the device's idle share of one call of
+    ``thunk`` under ``torch.profiler`` (table written to ``OUT_DIR/path``);
+    with ``match``, also the device time of the kernels whose name matches
+    that regular expression."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        thunk()
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_device_time_total", row_limit=40)
+    with open(os.path.join(OUT_DIR, path), "w") as f:
+        f.write(f"{card} {label}\n")
+        f.write(table)
+    device_kernels = sorted((e for e in averages if e.device_type == DeviceType.CUDA),
+                            key=lambda e: e.self_device_time_total, reverse=True)
+    device_us = sum(e.self_device_time_total for e in device_kernels)
+    print(f"{card} profile of {label}: kernels {device_us / 1e3:.3f} ms of a "
+          f"{window_us / 1e3:.3f} ms window (device idle share "
+          f"{1 - device_us / window_us:.4f}), {sum(e.count for e in device_kernels)} "
+          f"launches; top kernels by device time:")
+    for e in device_kernels[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+    matched = {} if match is None else dict(matched_ms=sum(
+        e.self_device_time_total for e in device_kernels if re.search(match, e.key)) / 1e3)
+    return dict(kernels_ms=device_us / 1e3, window_ms=window_us / 1e3, **matched,
+                idle_share=1 - device_us / window_us,
+                launches=sum(e.count for e in device_kernels),
+                top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
+                     for e in device_kernels[:8]])
+
+
 def main():
     import torch
 
@@ -3057,8 +3647,9 @@ def main():
                 "f32": ("float32",), "bf16": ("bfloat16",)}.get(which, ("float32", "bfloat16")))
 
     # ------------------------------------------------------------- 2. build
+    train_only = "--train" in sys.argv[1:]
     t0 = time.perf_counter()
-    per_source = build(SOURCES)
+    per_source = build(["entrychain"] if train_only else SOURCES)
     print(f"{card} build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})")
     for log in sorted(BUILD_DIR.glob("*.log")):
@@ -3091,6 +3682,13 @@ def main():
     def read_counts():
         return {name: fn.launches for name, fn in wrappers.items()}
 
+    if train_only:
+        check_entry_plans(entrychain, card)
+        results = flagship_train(torch, card, dev, defaults, (zero_counts, read_counts),
+                                 functools.partial(profile_thunk, torch, card))
+        print(json.dumps(results))
+        print(f"flagship train only: {time.perf_counter() - t_start:.1f} s")
+        return 0
     print_ptxas(card, "attention_bwd")
     check_bf16_sass(card)
     check_bwd_plans(attention, card)
@@ -3379,43 +3977,7 @@ def main():
     direct_launches = read_counts()["fused_sepconv_infer"]
     del args
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def profile_call(thunk, label, path, match=None):
-        """Kernel time by name and the device's idle share of one call of
-        ``thunk`` under ``torch.profiler`` (table written to ``path``);
-        with ``match``, also the device time of the kernels whose name
-        matches that regular expression."""
-        import re
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            thunk()
-            torch.cuda.synchronize()
-            window_us = 1e6 * (time.perf_counter() - t0)
-        averages = prof.key_averages()
-        table = averages.table(sort_by="self_device_time_total", row_limit=40)
-        with open(os.path.join(OUT_DIR, path), "w") as f:
-            f.write(f"{card} {label}\n")
-            f.write(table)
-        device_kernels = sorted((e for e in averages if e.device_type == DeviceType.CUDA),
-                                key=lambda e: e.self_device_time_total, reverse=True)
-        device_us = sum(e.self_device_time_total for e in device_kernels)
-        print(f"{card} profile of {label}: kernels {device_us / 1e3:.3f} ms of a "
-              f"{window_us / 1e3:.3f} ms window (device idle share "
-              f"{1 - device_us / window_us:.4f}), {sum(e.count for e in device_kernels)} "
-              f"launches; top kernels by device time:")
-        for e in device_kernels[:12]:
-            print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
-        matched = {} if match is None else dict(matched_ms=sum(
-            e.self_device_time_total for e in device_kernels if re.search(match, e.key)) / 1e3)
-        return dict(kernels_ms=device_us / 1e3, window_ms=window_us / 1e3, **matched,
-                    idle_share=1 - device_us / window_us,
-                    launches=sum(e.count for e in device_kernels),
-                    top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
-                         for e in device_kernels[:8]])
+    profile_call = functools.partial(profile_thunk, torch, card)
 
     def profile_forward(fn, label, image, path):
         with torch.inference_mode():
@@ -3435,6 +3997,10 @@ def main():
 
     # ------------------------------------------------- 7. DANet, OCNet train
     train = train_models(torch, card, dev, defaults, (zero_counts, read_counts), profile_call)
+
+    # ------------------------------------------------- 8. flagship training
+    flagship = flagship_train(torch, card, dev, defaults, (zero_counts, read_counts),
+                              profile_call)
 
     # ------------------------------------------------------------ results
     # per forward of the path that runs the kernel: fused_stem lies on the
@@ -3491,7 +4057,7 @@ def main():
                "f32": {**{name: k["float32"] for name, k in entry_kernels.items()},
                        **{name: r["float32"] for name, r in sep_results.items()}},
                "flash_attention": flash_results, "flash_attention_bwd": flash_bwd_results,
-               "attention_models": attn_models, "train": train,
+               "attention_models": attn_models, "train": train, "flagship_train": flagship,
                "probe_dot": probe_dot_results, "ceiling_probe": probe_lines,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))

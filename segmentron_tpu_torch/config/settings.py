@@ -31,11 +31,16 @@ the same defaults, so every ``configs/*.yaml`` loads unchanged. The
   ``AUX_WEIGHT`` and ``LOSS_NAME`` (mixed CE and OHEM are ported; focal,
   lovasz and dice raise), ``MODEL.MULTI_LOSS_WEIGHT``, ``TRAIN.EPOCHS``
   (the schedule's length), ``SEED`` (the dropout generator) and
-  ``TPU.REMAT``, of which only "none" is ported ("dots" and "full"
-  raise). ``SOLVER.AUX`` is read by the models (their aux outputs).
-- The other ``TRAIN`` keys (batch, crop, paths, checkpointing), the
-  mesh, pipeline and TPU compiler keys are accepted and not read: the
-  trainer, its data transforms and checkpointing are not ported yet.
+  ``TPU.REMAT`` ("none", "dots", "full"). ``SOLVER.AUX`` is read by the
+  models (their aux outputs).
+- The ``Trainer`` (``engine/trainer.py``, ``tools/train.py``) reads the
+  ``TRAIN`` keys (batch, crop, base size, epochs, snapshots, resume, the
+  save and log directories, ``BACKBONE_PRETRAINED`` whose lookup is
+  ported and whose loading raises), ``TEST.BATCH_SIZE``, the ``DATASET``
+  name, ``WORKERS`` and ``DEVICE_CANVAS``, ``TPU.DEVICE_AUGMENT`` and
+  ``PREFETCH``, ``UTILS.EPOCH_STOP``, ``DEBUG_NANS`` and the ``PROFILE``
+  window. One card is one replica: a ``TPU.MESH_SHAPE`` of more than one
+  device raises; the TPU compiler keys are accepted and not read.
 """
 
 import time

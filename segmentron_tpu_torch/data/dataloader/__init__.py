@@ -1,9 +1,10 @@
 """Dataset registry (counterpart of ``segmentron_tpu/data/dataloader``).
 
 ``NUM_CLASS`` gives the class count of every dataset name a config can
-carry for the models the port builds; only the synthetic set is
-loadable so far."""
+carry for the models the port builds; the synthetic set and Cityscapes
+are loadable so far."""
 
+from .cityscapes import CitySegmentation
 from .seg_data_base import SegmentationDataset
 from .synthetic import SyntheticSegmentation
 
@@ -15,6 +16,8 @@ NUM_CLASS = {
 }
 
 datasets = {
+    "citys": CitySegmentation,
+    "cityscapes": CitySegmentation,
     "synthetic": SyntheticSegmentation,
 }
 
@@ -27,4 +30,5 @@ def get_segmentation_dataset(name: str, **kwargs) -> SegmentationDataset:
     return datasets[key](**kwargs)
 
 
-__all__ = ["NUM_CLASS", "SegmentationDataset", "datasets", "get_segmentation_dataset"]
+__all__ = ["NUM_CLASS", "CitySegmentation", "SegmentationDataset", "SyntheticSegmentation",
+           "datasets", "get_segmentation_dataset"]

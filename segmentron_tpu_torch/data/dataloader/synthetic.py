@@ -5,6 +5,7 @@ images and masks from the same numpy draws, with no files."""
 from __future__ import annotations
 
 import numpy as np
+from PIL import Image
 
 from .seg_data_base import SegmentationDataset
 
@@ -36,9 +37,11 @@ class SyntheticSegmentation(SegmentationDataset):
         )
         img = ((img + 0.05 * rng.rand(h, w, 3)) * 220).clip(0, 255).astype(np.uint8)
         mask = (coarse * self.NUM_CLASS).astype(np.uint8) % self.NUM_CLASS
-        return img, mask
+        return Image.fromarray(img), Image.fromarray(mask)
 
     def __getitem__(self, index: int):
         img, mask = self._make_pair(index)
-        img_t, mask_t = self.transform_pair(img, mask)
+        if self.mode == "test":
+            return self.transform_pair(img, None)[0], None, f"synthetic_{index}.png"
+        img_t, mask_t = self.transform_pair(img, mask, index)
         return img_t, mask_t, f"synthetic_{index}.png"

@@ -1,4 +1,5 @@
 from .evaluator import Evaluator
-from .steps import make_predict_fn, make_train_step
+from .steps import make_eval_step, make_predict_fn, make_train_step
+from .trainer import Trainer
 
-__all__ = ["Evaluator", "make_predict_fn", "make_train_step"]
+__all__ = ["Evaluator", "Trainer", "make_eval_step", "make_predict_fn", "make_train_step"]

@@ -1,5 +1,5 @@
 from .basic import ConvBNReLU, SeparableConv2d, SepconvRoutes, conv2d
-from .batch_norm import BatchNorm2d, NormConfig, norm_from_cfg
+from .batch_norm import BatchNorm2d, NormConfig, norm_from_cfg, running_stats_frozen
 from .module import ASPP, Dropout2d, FCNHead
 
 __all__ = [
@@ -13,4 +13,5 @@ __all__ = [
     "SepconvRoutes",
     "conv2d",
     "norm_from_cfg",
+    "running_stats_frozen",
 ]

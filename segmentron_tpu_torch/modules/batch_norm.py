@@ -11,17 +11,35 @@ running statistics in training too, never updating them. GN is a
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BatchNorm2d", "NormConfig", "norm_from_cfg"]
+__all__ = ["BatchNorm2d", "NormConfig", "norm_from_cfg", "running_stats_frozen"]
 
 _TORCH_BN_DEFAULT_MOMENTUM = 0.1
 _TORCH_BN_DEFAULT_EPS = 1e-5
+_frozen_here = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """In this thread, for the block, a train-mode ``BatchNorm2d``
+    normalizes with the batch statistics but leaves its running ones
+    alone: the train step's rematerialization recomputes the forward
+    under it, so the statistics move once a step, as when the JAX
+    package's recompute returns ``batch_stats`` without applying them."""
+    depth = getattr(_frozen_here, "depth", 0)
+    _frozen_here.depth = depth + 1
+    try:
+        yield
+    finally:
+        _frozen_here.depth = depth
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -49,6 +67,8 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 0.0, self.eps)
         out, mean, invstd = torch.native_batch_norm(x, weight, bias, None, None, True, 0.0,
                                                     self.eps)
+        if getattr(_frozen_here, "depth", 0):
+            return out
         with torch.no_grad():
             # the biased variance, back from the kernel's 1 / sqrt(var + eps)
             var = (invstd.float().pow(-2) - self.eps).clamp_(min=0.0)

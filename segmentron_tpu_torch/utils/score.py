@@ -48,8 +48,13 @@ class SegmentationMetric:
         labels = torch.as_tensor(labels, device=preds.device)
         if preds.ndim == labels.ndim + 1:
             preds = preds.argmax(dim=-1)
-        cm = confusion_matrix_update(preds, labels, self.nclass)
-        self._cm += cm.cpu().numpy().astype(np.int64)
+        self.update_cm(confusion_matrix_update(preds, labels, self.nclass))
+
+    def update_cm(self, cm) -> None:
+        """Add a batch's (nclass, nclass) confusion matrix (a tensor on any
+        device, or numpy), as the train loop's eval step returns it."""
+        cm = cm.cpu().numpy() if isinstance(cm, torch.Tensor) else np.asarray(cm)
+        self._cm += cm.astype(np.int64)
 
     @property
     def confusion_matrix(self) -> np.ndarray:

@@ -104,3 +104,44 @@ def test_port_imports_no_jax():
         for name in _imports(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "segmentron_tpu"), (path, name)
+
+
+def _undefined_globals(path):
+    """Names that a scope of ``path`` reads as globals but that the module
+    never binds, nor builtins hold: what a NameError would stop on."""
+    import builtins
+    import symtable
+
+    top = symtable.symtable(open(path).read(), path, "exec")
+    bound = set(dir(builtins)) | {"__file__", "__name__", "__doc__"}
+    scopes, bad = [top], []
+    while scopes:
+        table = scopes.pop()
+        scopes.extend(table.get_children())
+        for sym in table.get_symbols():
+            if (sym.is_assigned() or sym.is_imported()) and (
+                    table is top or sym.is_declared_global()):
+                bound.add(sym.get_name())
+    scopes = [top]
+    while scopes:
+        table = scopes.pop()
+        scopes.extend(table.get_children())
+        for sym in table.get_symbols():
+            if sym.is_referenced() and (table is top or sym.is_global()):
+                bad.append((table.get_name(), sym.get_name()))
+    return sorted({b for b in bad if b[1] not in bound})
+
+
+def test_chip_smoke_reads_no_unbound_name():
+    # chip_smoke.py only runs on the card, so a mode that reads another
+    # function's locals would fail only there; a planted one must show here.
+    path = os.path.join(REPO, "chip_smoke.py")
+    assert _undefined_globals(path) == []
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        planted = os.path.join(tmp, "planted.py")
+        with open(planted, "w") as f:
+            f.write("def main():\n    flag = 1\n    return flag\n\n"
+                    "def mode():\n    return flag\n")
+        assert _undefined_globals(planted) == [("mode", "flag")]

@@ -24,7 +24,8 @@ from segmentron_tpu_torch.ops import entrychain as ec
 
 torch.set_num_threads(2)
 
-SHAPES = [(1, 1024, 2048), (2, 48, 64), (1, 32, 128), (1, 1040, 2048)]
+# (2, 768, 768): the Trainer's validation at the flagship's 768 crop, batch 2
+SHAPES = [(1, 1024, 2048), (2, 48, 64), (1, 32, 128), (1, 1040, 2048), (2, 768, 768)]
 
 
 def _params(seed):

@@ -301,16 +301,18 @@ def test_flash_route_qkv_grads_equal_dense(monkeypatch, which):
 
 
 def test_remat_and_devices(cfgs):
-    """TPU.REMAT other than "none" raises; the step defaults to CUDA and
-    raises without a card."""
+    """TPU.REMAT "dots" and "full" build a step (from the cfg or the
+    argument), an unknown mode raises ValueError as in the JAX package;
+    the step defaults to CUDA and raises without a card."""
     _, pcfg = cfgs
     model = torch.nn.Conv2d(3, 2, 1)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     pcfg.update_from_list(["TPU.REMAT", "dots"])
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, None, opt, lambda s: 0.1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, None, opt, lambda s: 0.1, remat="full", device="cpu")
+    assert make_train_step(model, None, opt, lambda s: 0.1, device="cpu").remat == "dots"
+    assert make_train_step(model, None, opt, lambda s: 0.1, remat="full",
+                           device="cpu").remat == "full"
+    with pytest.raises(ValueError, match="remat"):
+        make_train_step(model, None, opt, lambda s: 0.1, remat="offload", device="cpu")
     pcfg.update_from_list(["TPU.REMAT", "none"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
