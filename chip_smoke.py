@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--kernels-only | --train | --probe | --probe-dot
+    python3 chip_smoke.py [--kernels-only | --train | --eval | --probe | --probe-dot
                            | --entry [--baseline=<path>] | --entry-probe[=stem|block1]
                            | --sepconv [--baseline=<path>] | --sepconv-probe
                            | --flash-fwd [--baseline=<path>] | --flash-fwd-probe
@@ -128,13 +128,32 @@ Phases, each fatal on failure (exit code != 0, no result line):
    runs it (2 epochs of 2 steps at batch 16, a snapshot and a validation
    each epoch, the entry kernel once an eval batch and never in training),
    then ``--resume`` for a third epoch; the trained model's validation in
-   f32 through the entry kernel against the plain entry modules.
+   f32 through the entry kernel against the plain entry modules;
+9. evaluation and int8 serving (``eval_phase``, on phase 8's tree and
+   snapshots before they are removed): (a) every distinct int8 conv of
+   ResNet-101 at output stride 8 (``qconv``, recorded from a DANet
+   forward): the CUDA route's int32 accumulators (``torch._int_mm``)
+   bitwise equal to the plain version's, the f32 output within one ulp,
+   the product timed beside the bf16 ``F.conv2d`` it replaces; (b) DANet
+   and OCNet from the serving YAMLs with ``TPU.INT8_RESNET`` on
+   (``SERVE_OPTS``) at 1024x2048, bf16: the int8-interior forward against
+   the bf16 forward of the same weights (argmax agreement, max|d logit|,
+   the flash kernel launched once in each), both timed in turns, peak
+   memory; (c) ``segmentron_tpu_torch.tools.eval`` on the snapshots
+   (latest and ``--best``), with multi-scale and flip TTA and with a 769
+   sliding window, each confusion matrix held to an in-process
+   ``Evaluator`` on the plain routes, and the DANet serving YAML once.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.
 
 ``--train`` builds ``csrc/entrychain.cu`` alone, checks its plans and
 runs phase 8 only (the rehearsal after an edit of the training path).
+``--eval`` builds ``csrc/entrychain.cu`` and ``csrc/attention.cu``, checks
+their plans, writes a Cityscapes tree of 16 train and 4 val pairs, trains
+one step through ``tools.train`` (for a latest and a best snapshot) and
+runs phase 9 only (the rehearsal after an edit of the evaluation or int8
+serving path).
 ``--probe`` does none of this: it builds ``csrc/sepconv.cu`` with its
 clock64 probe and prints, for each main sepconv case in bf16, the share
 of the cycles that the taps, the products (for the wgmma kernel: the
@@ -231,8 +250,8 @@ ENTRY_SOURCE = "segmentron_tpu_torch/csrc/entrychain.cu"
 ATTENTION_SOURCE = "segmentron_tpu_torch/csrc/attention.cu"
 ATTENTION_REPLACES = ("segmentron_tpu/ops/attention.py:44 (_flash_kernel; "
                       "_attention_pallas :101, pallas_call :117)")
-# The DANet and OCNet serving configs, on the bf16 path: INT8_RESNET is not
-# ported, and the crop is the whole frame (whole-image eval).
+# The DANet and OCNet serving configs, on the bf16 path for phase 6 (phase 9
+# runs their int8 interiors), and the crop is the whole frame (whole-image eval).
 ATTENTION_MODELS = {
     "DANet": "configs/serve_cityscapes_danet_int8.yaml",
     "OCNet": "configs/serve_cityscapes_ocnet_int8.yaml",
@@ -2244,7 +2263,6 @@ def attention_models(torch, card, dev, defaults, counts, profile_forward, profil
     from segmentron_tpu_torch.config import cfg
     from segmentron_tpu_torch.data.dataloader import SyntheticSegmentation
     from segmentron_tpu_torch.engine import Evaluator, make_predict_fn
-    from segmentron_tpu_torch.models import get_segmentation_model
 
     zero_counts, read_counts = counts
 
@@ -2254,20 +2272,7 @@ def attention_models(torch, card, dev, defaults, counts, profile_forward, profil
     def build(name, arch="base"):
         load_cfg(cfg, defaults, ATTENTION_MODELS[name],
                  ATTENTION_OPTS + ["MODEL.OCNet.OC_ARCH", arch])
-        gen = torch.Generator().manual_seed(int(cfg.SEED))
-        model = get_segmentation_model(dev, generator=gen)
-        with torch.no_grad():
-            for m in model.modules():
-                if isinstance(m, torch.nn.BatchNorm2d):
-                    c = m.num_features
-                    m.weight.copy_(torch.rand(c, generator=gen) * 0.5 + 0.75)
-                    m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
-                    m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
-                    m.running_var.copy_(torch.rand(c, generator=gen) * 0.5 + 0.75)
-            gammas = [p for n, p in model.named_parameters() if n.endswith("gamma")]
-            for p in gammas:
-                p.fill_(GAMMA)
-        return model, len(gammas)
+        return attention_model(torch, dev, cfg)
 
     data = SyntheticSegmentation(split="val", mode="testval", length=2, image_size=SHAPE[1:3])
     image = torch.from_numpy(data[0][0][None]).to(dev)
@@ -2842,7 +2847,7 @@ def city_batches(torch, root, n, dev):
     return batch, ds.device_input.pad_label
 
 
-def flagship_train(torch, card, dev, defaults, counts, profile_call):
+def flagship_train(torch, card, dev, defaults, counts, profile_call, then=None):
     """Phase 8: DeepLabv3+ / Xception-65 training at full width (16 middle
     blocks, output stride 16) from the flagship YAML on a Cityscapes tree
     written to a temporary directory (``CITY_TRAIN`` train and ``CITY_VAL``
@@ -2881,7 +2886,8 @@ def flagship_train(torch, card, dev, defaults, counts, profile_call):
     Trainer's rate over one epoch of 8 steps of batch 16 (``tools.train``
     again, ``--skip-val``, 128 train items: each written pair linked 4
     times), img/s per step and the median of steps 3-8, beside one item's
-    host decode time on one thread."""
+    host decode time on one thread. ``then(tmp, snapshots)``, when given,
+    runs on the tree and the snapshots before they are removed."""
     import contextlib
     import re
     import tempfile
@@ -3244,11 +3250,381 @@ def flagship_train(torch, card, dev, defaults, counts, profile_call):
         del rate_trainer, rate_trainers, dataset
         del trainer, seen
         torch.cuda.empty_cache()
+        if then is not None:  # phase 9 on this tree and these snapshots
+            results["then"] = then(tmp, os.path.join(run_dir, "snapshots"))
     finally:
         import shutil
 
         shutil.rmtree(tmp, ignore_errors=True)
     return results
+
+
+# ------------------------------------------------ 9. evaluation and int8 serving
+# The serving YAMLs as written but for the dataset and TEST.CROP_SIZE: their
+# [1024, 2048] is a list, which the JAX Evaluator's int(crop) refuses;
+# 2048 is the int it can read with the same effect at 1024x2048 (the whole
+# frame, no sliding window). Neither package's cfg takes a scalar over a
+# list from KEY VALUE pairs, so in process the list is cleared first, and
+# the tool reads a copy of the YAML with the int (SERVE_CROP).
+SERVE_OPTS = ["DATASET.NAME", "synthetic", "TEST.CROP_SIZE", None, "TEST.CROP_SIZE", 2048]
+SERVE_CROP = ("CROP_SIZE: [1024, 2048]", "CROP_SIZE: 2048")
+# The JAX package's own int8-vs-f32 argmax agreement at the CPU test's
+# size (tests/test_torch_int8_resnet.py: 4 blocks) sets no bar at full
+# depth, where the int8 noise of 33 blocks of random weights is far larger.
+# The bar is the JAX package's int8-vs-f32 agreement on these weights at
+# full width and depth at 256x512 on the CPU (python tests/int8_agreement.py;
+# PERF.md), less INT8_AGREE_MARGIN for the cut image and bf16.
+INT8_AGREE_CPU = {"DANet": 0.9595794677734375, "OCNet": 0.913330078125}
+INT8_AGREE_MARGIN = 0.05
+EVAL_RUNS = [  # phase 9 (c): (label, tools.eval flags, KEY VALUE overrides)
+    ("flagship", [], []),
+    ("flagship --best", ["--best"], []),
+    ("scales 0.75/1/1.25 + flip", [], ["TEST.SCALES", "[0.75, 1.0, 1.25]", "TEST.FLIP", "True"]),
+    ("sliding crop 769", [], ["TEST.CROP_SIZE", "769"]),
+]
+CM_MOVED = 0.005  # phase 4's argmax bar (>= 0.995) as a share of the CM's pixels
+
+
+def drop_port_log_handlers():
+    """Detach the port's log handlers, which a tool run under
+    ``redirect_stdout`` bound to a log file that is closed after it."""
+    import logging
+
+    logger = logging.getLogger("segmentron_tpu_torch")
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
+
+
+def attention_model(torch, dev, cfg):
+    """DANet or OCNet as the cfg names it, random weights from the seed,
+    BN statistics drawn as for the flagship and ``gamma = GAMMA``; returns
+    (model, the number of gammas)."""
+    from segmentron_tpu_torch.models import get_segmentation_model
+
+    gen = torch.Generator().manual_seed(int(cfg.SEED))
+    model = get_segmentation_model(dev, generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(torch.rand(c, generator=gen) * 0.5 + 0.75)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(c, generator=gen) * 0.5 + 0.75)
+        gammas = [p for n, p in model.named_parameters() if n.endswith("gamma")]
+        for p in gammas:
+            p.fill_(GAMMA)
+    return model, len(gammas)
+
+
+def record_qconvs(torch, predict, image):
+    """{(C, O, k, stride, dilation): (the call's QTensor, weight, quantized
+    pair, stride, padding, dilation, output hw)} of the first ``qconv``
+    call of each distinct shape in one forward of ``predict``."""
+    from segmentron_tpu_torch.models.backbones import resnet
+
+    seen, real = {}, resnet.qconv
+
+    def recording(x, w, stride=1, padding=None, dilation=1, **kw):
+        out = real(x, w, stride, padding, dilation, **kw)
+        key = (x.q.shape[-1], w.shape[-1], w.shape[0], tuple(stride), tuple(dilation))
+        if key not in seen:
+            hw = tuple((out.q if hasattr(out, "q") else out).shape[1:3])
+            seen[key] = (x, w, kw["quantized"], tuple(stride), tuple(padding), tuple(dilation),
+                         tuple(x.q.shape[1:3]), hw)
+        return out
+
+    resnet.qconv = recording
+    try:
+        with torch.inference_mode():
+            predict(image)
+    finally:
+        resnet.qconv = real
+    return seen
+
+
+def check_qconv_products(torch, card, dev, calls):
+    """Phase 9 (a): at every distinct int8 conv of ResNet-101 at output
+    stride 8 (recorded from a DANet forward at 1024x2048), the int32
+    accumulators of the CUDA route (``torch._int_mm`` over the gathered
+    taps) bitwise equal to the plain version's (a float64 product on the
+    CPU), the f32 output ``acc * s_w`` within one f32 ulp of the plain
+    one, and the product's time beside the bf16 ``F.conv2d`` it replaces
+    (channels-last, cuDNN) and its bound."""
+    import torch.nn.functional as F
+
+    from segmentron_tpu_torch.ops.quant import qconv, qconv_acc
+
+    results = {}
+    for key, (x, w, quantized, stride, padding, dilation, in_hw, out_hw) in sorted(calls.items()):
+        c, o, k = key[:3]
+        w_mat, s_w = quantized
+        acc = qconv_acc(x.q, w_mat, (k, k), stride, padding, dilation)
+        plain = qconv_acc(x.q.cpu(), w_mat.cpu(), (k, k), stride, padding, dilation)
+        y = qconv(x, w, stride, padding, dilation, quantized=quantized)
+        torch.cuda.synchronize()
+        ref = plain.float() * s_w.cpu()
+        ulp = torch.finfo(torch.float32).eps * ref.abs().clamp(min=torch.finfo(torch.float32).tiny)
+        acc_equal = torch.equal(acc.cpu(), plain)
+        y_err = ((y.cpu() - ref).abs() / ulp).max().item()
+        xb = torch.randn((1, c) + in_hw, device=dev, dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wb = torch.randn((o, c, k, k), device=dev, dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        ms = median_ms(torch, lambda: qconv_acc(x.q, w_mat, (k, k), stride, padding, dilation))
+        epi_ms = median_ms(torch, lambda: qconv(x, w, stride, padding, dilation,
+                                                quantized=quantized))
+        conv_ms = median_ms(torch, lambda: F.conv2d(xb, wb, None, stride, padding, dilation))
+        m = out_hw[0] * out_hw[1]
+        ops = 2 * m * k * k * c * o
+        bytes_ = in_hw[0] * in_hw[1] * c + k * k * c * o + 4 * m * o  # int8 in, int32 out
+        bound = max(ops / PEAK_OPS["int8"], bytes_ / PEAK_BYTES) * 1e3
+        print(f"{card} qconv (C {c}, O {o}, k {k}, stride {stride[0]}, dilation {dilation[0]}) "
+              f"{in_hw} -> {out_hw}: int32 accumulators CUDA == plain: {acc_equal}; f32 output "
+              f"max err {y_err:.3f} ulp [<= 1]; product (taps + torch._int_mm) {ms:.4f} ms, with "
+              f"the f32 epilogue {epi_ms:.4f} ms, bf16 F.conv2d {conv_ms:.4f} ms, bound "
+              f"{bound:.4f} ms")
+        if not acc_equal or y_err > 1.0:
+            fail(f"qconv {key}: the CUDA route differs from the plain version")
+        results["x".join(map(str, key[:3])) + f"_s{stride[0]}_d{dilation[0]}"] = dict(
+            in_hw=in_hw, out_hw=out_hw, ms=ms, epilogue_ms=epi_ms, conv2d_bf16_ms=conv_ms,
+            bound_ms=bound, acc_equal=acc_equal, f32_ulp=y_err)
+    return results
+
+
+def serving_forwards(torch, card, dev, defaults, counts, profile_call):
+    """Phase 9 (a) and (b): DANet and OCNet from the serving YAMLs with
+    ``TPU.INT8_RESNET`` on (``SERVE_OPTS``), ResNet-101 at output stride 8,
+    1024x2048, batch 1, bf16, random weights as in phase 6. Each model's
+    int8-interior forward and its bf16 forward (the same weights, int8
+    off) with the flash-attention launches counted in both; argmax
+    agreement and max|d logit| of int8 against bf16, held to
+    ``INT8_AGREE_CPU`` less ``INT8_AGREE_MARGIN``; both forwards timed in
+    turns (int8, bf16, bf16, int8; median of 20 by CUDA events each), their
+    peak memory and one profiled int8 forward. DANet's forward first feeds
+    (a)."""
+    from segmentron_tpu_torch.config import cfg
+    from segmentron_tpu_torch.data.dataloader import SyntheticSegmentation
+    from segmentron_tpu_torch.engine import make_predict_fn
+    from segmentron_tpu_torch.models.backbones.resnet import int8_resnet_k, set_int8_resnet
+
+    zero_counts, read_counts = counts
+    data = SyntheticSegmentation(split="val", mode="testval", length=1, image_size=SHAPE[1:3])
+    image = torch.from_numpy(data[0][0][None]).to(dev)
+    results = {}
+    for name in ("DANet", "OCNet"):
+        load_cfg(cfg, defaults, ATTENTION_MODELS[name], SERVE_OPTS)
+        k = int8_resnet_k(cfg)
+        if k is None:
+            fail(f"{name}: the serving YAML does not switch TPU.INT8_RESNET on")
+        model, _ = attention_model(torch, dev, cfg)
+        predict = make_predict_fn(model, cfg.TPU.COMPUTE_DTYPE, dev)
+        if name == "DANet":
+            results["qconv"] = check_qconv_products(torch, card, dev,
+                                                    record_qconvs(torch, predict, image))
+        logits, launches, peak = {}, {}, {}
+        with torch.inference_mode():
+            for mode, int8_k in (("int8", k), ("bf16", None)):
+                set_int8_resnet(model, int8_k)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                logits[mode] = predict(image)
+                torch.cuda.synchronize()
+                launches[mode] = read_counts()
+                peak[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+            times = {"int8": [], "bf16": []}
+            for mode in ("int8", "bf16", "bf16", "int8"):
+                set_int8_resnet(model, k if mode == "int8" else None)
+                times[mode].append(median_ms(torch, lambda: predict(image), n=20, warmup=3))
+            set_int8_resnet(model, k)
+            profile = profile_call(lambda: predict(image), f"one int8 forward, {name} serving "
+                                   f"YAML, bf16, 1x{SHAPE[1]}x{SHAPE[2]}",
+                                   f"chip_smoke_profile_{name.lower()}_int8.txt")
+        for mode, lg in logits.items():
+            if lg.shape != (1, SHAPE[1], SHAPE[2], model.nclass) or not torch.isfinite(lg).all():
+                fail(f"{name} {mode}: logits {tuple(lg.shape)} or non-finite")
+            others = {key: v for key, v in launches[mode].items() if v and key != "flash_attention"}
+            if launches[mode]["flash_attention"] != 1 or others:
+                fail(f"{name} {mode}: launches {launches[mode]}, want flash_attention once")
+        agree = (logits["int8"].argmax(-1) == logits["bf16"].argmax(-1)).float().mean().item()
+        max_d = (logits["int8"] - logits["bf16"]).abs().max().item()
+        scale = logits["bf16"].abs().max().item()
+        ms = {mode: statistics.mean(v) for mode, v in times.items()}
+        bar = INT8_AGREE_CPU[name] - INT8_AGREE_MARGIN
+        print(f"{card} {name} serving YAML, int8 interiors (INT8_K {k}) vs bf16, (1, {SHAPE[1]}, "
+              f"{SHAPE[2]}, 3): argmax agreement {agree:.6f} [>= {bar:.4f}], max|d logit| "
+              f"{max_d:.6g} (max|logit| {scale:.6g}); forward ms (img/s), median of 20 in turns: "
+              f"int8 {ms['int8']:.3f} ({1e3 / ms['int8']:.2f}) {[round(v, 3) for v in times['int8']]}, "
+              f"bf16 {ms['bf16']:.3f} ({1e3 / ms['bf16']:.2f}) {[round(v, 3) for v in times['bf16']]}; "
+              f"peak memory int8 {peak['int8']:.3f} GiB, bf16 {peak['bf16']:.3f} GiB; flash "
+              f"launches int8 {launches['int8']['flash_attention']}, bf16 "
+              f"{launches['bf16']['flash_attention']}")
+        if agree < bar:
+            fail(f"{name}: the int8 forward's argmax agrees with the bf16 forward's on less than "
+                 f"{bar:.4f} of the pixels")
+        results[name] = dict(argmax_agreement=agree, max_abs_d_logit=max_d, max_abs_logit=scale,
+                             forward_ms=ms, rounds=times, peak_gib=peak, profile=profile,
+                             launches=launches["int8"]["flash_attention"]
+                             + launches["bf16"]["flash_attention"])
+        del model, predict, logits
+        torch.cuda.empty_cache()
+    return results
+
+
+def eval_tool_runs(torch, card, defaults, counts, tmp, snapshots):
+    """Phase 9 (c): ``segmentron_tpu_torch.tools.eval`` as a user runs it,
+    over the Cityscapes val pairs under ``tmp``, on the snapshots in
+    ``snapshots`` (``TEST.TEST_MODEL_PATH``): the flagship YAML as written
+    (latest snapshot, then ``--best``), with multi-scale and flip TTA, and
+    with a 769 sliding window (``EVAL_RUNS``), the launch counters set to 0
+    before each and read after it. Each run's confusion matrix is held to
+    an in-process ``Evaluator`` on the plain routes (the entry modules, no
+    kernel) of the same cfg and weights: at most ``CM_MOVED`` of the pixels
+    moved. Printed: mIoU, img/s, entry launches per image and the input
+    shapes whose entry gate (``stem_block1_supported``) refuses them. Then
+    the DANet serving YAML once through the tool (a copy with the crop of
+    ``SERVE_CROP``; no snapshot: random weights), its flash launches
+    counted (one an image)."""
+    import contextlib
+    import types
+
+    from segmentron_tpu_torch.config import cfg
+    from segmentron_tpu_torch.engine import Evaluator
+    from segmentron_tpu_torch.models.backbones import xception
+    from segmentron_tpu_torch.tools import eval as eval_tool
+
+    zero_counts, read_counts = counts
+    gate, real_gate = [], xception.Xception65._fused_stem_mode
+    eval_seconds, real_eval = [], Evaluator.eval
+
+    def timed_eval(self):
+        t0 = time.perf_counter()
+        out = real_eval(self)
+        torch.cuda.synchronize()
+        eval_seconds.append(time.perf_counter() - t0)
+        return out
+
+    def recording_gate(self, x):
+        mode = real_gate(self, x)
+        gate.append((tuple(x.shape), mode))
+        return mode
+
+    results = {}
+    log_path = os.path.join(OUT_DIR, "chip_smoke_eval_log.txt")
+    xception.Xception65._fused_stem_mode = recording_gate
+    Evaluator.eval = timed_eval
+    try:
+        with open(log_path, "w") as log:
+            for label, flags, extra in EVAL_RUNS + [("DANet serving YAML", [], None)]:
+                if extra is None:
+                    text = open(ATTENTION_MODELS["DANet"]).read()
+                    if SERVE_CROP[0] not in text:
+                        fail(f"{ATTENTION_MODELS['DANet']} no longer sets {SERVE_CROP[0]}")
+                    yaml = os.path.join(tmp, "serve_danet_crop2048.yaml")
+                    with open(yaml, "w") as f:
+                        f.write(text.replace(*SERVE_CROP))
+                    argv = ["--config-file", yaml, "ROOT_PATH", tmp, "TIME_STAMP",
+                            "chip_smoke_eval"]
+                else:
+                    argv = ["--config-file", FLAGSHIP, *flags, "ROOT_PATH", tmp, "TIME_STAMP",
+                            "chip_smoke_eval", "TEST.TEST_MODEL_PATH", snapshots, *extra]
+                reset_cfg(cfg, defaults)
+                gate.clear()
+                with contextlib.redirect_stdout(log):
+                    zero_counts()
+                    eval_seconds.clear()
+                    t0 = time.perf_counter()
+                    tool = eval_tool.main(argv)
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    loop = eval_seconds[0]  # Evaluator.eval: the loader, TTA and scoring
+                    launches = read_counts()
+                    n_img = len(tool.dataset)
+                    cm = tool.metric.confusion_matrix
+                    pix_acc, miou, _ = tool.metric.get(return_category_iou=True)
+                    seen = sorted(set(gate))
+                    if extra is not None:  # the plain twin: same cfg (frozen) and weights
+                        plain = Evaluator(args=types.SimpleNamespace(best="--best" in flags))
+                        plain.model.backbone.fused_stem = False
+                        plain.eval()
+                        plain_cm = plain.metric.confusion_matrix
+                        del plain
+                del tool
+                torch.cuda.empty_cache()
+                labelled = int(cm.sum())
+                refused = [shape for shape, mode in seen if mode != "block1"]
+                if extra is None:
+                    print(f"{card} tools.eval {label} ({' '.join(argv)}): "
+                          f"{n_img} images, eval loop {loop:.3f} s ({n_img / loop:.3f} img/s), "
+                          f"the whole tool {seconds:.3f} s; mIoU {miou:.6f}; flash launches "
+                          f"{launches['flash_attention']}")
+                    if launches["flash_attention"] != n_img or labelled == 0:
+                        fail(f"tools.eval {label}: flash launches {launches}")
+                    results[label] = dict(images=n_img, seconds=seconds, eval_seconds=loop,
+                                          img_per_s=n_img / loop, miou=miou,
+                                          launches=launches["flash_attention"])
+                    continue
+                moved = int(abs(cm - plain_cm).sum()) // 2
+                entry = launches["fused_stem_block1"]
+                print(f"{card} tools.eval {label}: {n_img} images, eval loop {loop:.3f} s "
+                      f"({n_img / loop:.3f} img/s with the PNG decode), the whole tool "
+                      f"{seconds:.3f} s; pixAcc {pix_acc:.6f}, mIoU {miou:.6f}; entry kernel launches "
+                      f"{entry} ({entry / n_img:.2f} an image); forward shapes and the entry "
+                      f"gate {seen}, refused {refused}; CM vs the plain routes: {moved} of "
+                      f"{labelled} pixels moved [<= {CM_MOVED}]")
+                if moved > CM_MOVED * labelled or labelled == 0:
+                    fail(f"tools.eval {label}: the confusion matrix moved {moved} pixels from "
+                         f"the plain routes'")
+                if entry != sum(1 for shape, mode in gate if mode == "block1") or (
+                        not refused and entry == 0):
+                    fail(f"tools.eval {label}: {entry} entry launches for the gate's {seen}")
+                results[label] = dict(images=n_img, seconds=seconds, eval_seconds=loop,
+                                      img_per_s=n_img / loop,
+                                      pix_acc=pix_acc, miou=miou, entry_launches=entry,
+                                      shapes=seen, refused=refused, cm_moved=moved)
+    finally:
+        xception.Xception65._fused_stem_mode = real_gate
+        Evaluator.eval = real_eval
+        drop_port_log_handlers()
+    return results
+
+
+def eval_phase(torch, card, dev, defaults, counts, tmp, snapshots):
+    """Phase 9: (a) and (b) ``serving_forwards``, (c) ``eval_tool_runs``."""
+    results = serving_forwards(torch, card, dev, defaults, counts,
+                               functools.partial(profile_thunk, torch, card))
+    results["tools_eval"] = eval_tool_runs(torch, card, defaults, counts, tmp, snapshots)
+    return results
+
+
+def eval_only(torch, card, dev, defaults, counts):
+    """``--eval``: phase 9 alone, on a Cityscapes tree of 16 train and
+    ``CITY_VAL`` val pairs and the snapshots of a one-step run of
+    ``tools.train`` (with its validation, for the best snapshot)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from segmentron_tpu_torch.config import cfg
+    from segmentron_tpu_torch.tools import train as train_tool
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        write_cityscapes(os.path.join(tmp, "datasets", "cityscapes"), 16, CITY_VAL)
+        reset_cfg(cfg, defaults)
+        with open(os.path.join(OUT_DIR, "chip_smoke_eval_train_log.txt"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            train_tool.main(["--config-file", FLAGSHIP, "ROOT_PATH", tmp, "TIME_STAMP",
+                             "chip_smoke", "TRAIN.EPOCHS", "1", "TRAIN.BACKBONE_PRETRAINED",
+                             "False", "TRAIN.MODEL_SAVE_DIR", os.path.join(tmp, "runs")])
+        drop_port_log_handlers()
+        torch.cuda.empty_cache()
+        return eval_phase(torch, card, dev, defaults, counts, tmp,
+                          os.path.join(tmp, "runs", RUN_NAME, "snapshots"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------ the ceiling probe's kernel
@@ -3648,8 +4024,10 @@ def main():
 
     # ------------------------------------------------------------- 2. build
     train_only = "--train" in sys.argv[1:]
+    eval_only_run = "--eval" in sys.argv[1:]
     t0 = time.perf_counter()
-    per_source = build(["entrychain"] if train_only else SOURCES)
+    per_source = build(["entrychain"] if train_only else ["entrychain", "attention"]
+                       if eval_only_run else SOURCES)
     print(f"{card} build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})")
     for log in sorted(BUILD_DIR.glob("*.log")):
@@ -3688,6 +4066,13 @@ def main():
                                  functools.partial(profile_thunk, torch, card))
         print(json.dumps(results))
         print(f"flagship train only: {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if eval_only_run:
+        check_entry_plans(entrychain, card)
+        check_fwd_plans(torch, attention, card)
+        results = eval_only(torch, card, dev, defaults, (zero_counts, read_counts))
+        print(json.dumps(results))
+        print(f"eval only: {time.perf_counter() - t_start:.1f} s")
         return 0
     print_ptxas(card, "attention_bwd")
     check_bf16_sass(card)
@@ -3999,8 +4384,13 @@ def main():
     train = train_models(torch, card, dev, defaults, (zero_counts, read_counts), profile_call)
 
     # ------------------------------------------------- 8. flagship training
-    flagship = flagship_train(torch, card, dev, defaults, (zero_counts, read_counts),
-                              profile_call)
+    # ------------------------------------- 9. evaluation and int8 serving
+    # (on phase 8's Cityscapes tree and snapshots, before they are removed)
+    flagship = flagship_train(
+        torch, card, dev, defaults, (zero_counts, read_counts), profile_call,
+        then=lambda tmp, snapshots: eval_phase(torch, card, dev, defaults,
+                                               (zero_counts, read_counts), tmp, snapshots))
+    serving = flagship.pop("then")
 
     # ------------------------------------------------------------ results
     # per forward of the path that runs the kernel: fused_stem lies on the
@@ -4058,6 +4448,7 @@ def main():
                        **{name: r["float32"] for name, r in sep_results.items()}},
                "flash_attention": flash_results, "flash_attention_bwd": flash_bwd_results,
                "attention_models": attn_models, "train": train, "flagship_train": flagship,
+               "eval_and_int8_serving": serving,
                "probe_dot": probe_dot_results, "ceiling_probe": probe_lines,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))

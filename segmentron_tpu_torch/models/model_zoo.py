@@ -22,13 +22,13 @@ __all__ = ["MODEL_REGISTRY", "check_int8_supported", "get_segmentation_model"]
 def check_int8_supported() -> None:
     """Raise for the int8 settings that are not ported yet: of
     ``cfg.TPU.INT8_ACTIVATIONS`` only the "pw" mode is (not ``True`` /
-    "full"), and neither ``INT8_RESNET`` nor calibration
-    (``INT8_CALIBRATE``, ``INT8_CALIBRATION_BATCHES > 0``) is."""
+    "full"), and calibration (``INT8_CALIBRATE``,
+    ``INT8_CALIBRATION_BATCHES > 0``) is not. ``INT8_RESNET`` is ported
+    (``models/backbones/resnet.py``)."""
     t = cfg.TPU
     unsupported = {
         f"TPU.INT8_ACTIVATIONS={t.INT8_ACTIVATIONS!r}":
             t.INT8_ACTIVATIONS not in (False, None, "", "pw"),
-        "TPU.INT8_RESNET": bool(t.INT8_RESNET),
         "TPU.INT8_CALIBRATE": bool(t.INT8_CALIBRATE),
         "TPU.INT8_CALIBRATION_BATCHES": int(t.INT8_CALIBRATION_BATCHES) > 0,
     }

@@ -15,7 +15,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.quant import (
-    bn_amax, bn_folded_affine, fold_and_quantize_weights, qconv, quantize_static,
+    bn_amax, bn_folded_affine, fold_and_quantize_weights, matmul_weights, qconv,
+    quantize_static,
 )
 from ..ops.sepconv import (
     WeightCache, fold_sepconv_int8, fused_sepconv_infer_v2, fused_sepconv_infer_v3,
@@ -233,8 +234,8 @@ class SeparableConv2d(nn.Module):
             dw, a1, c1, pw, a2, c2 = sepconv_folded(self)
             amax = bn_amax(a1, c1, k=self.routes.int8_k)
             taps = self.depthwise.weight.to(x.dtype).float()
-            quantized = fold_and_quantize_weights(pw, (amax / 127.0).float())
-            return taps, a1, c1, amax, pw, quantized, (a2, c2)
+            w_q, s_w = fold_and_quantize_weights(pw, (amax / 127.0).float())
+            return taps, a1, c1, amax, pw, (matmul_weights(w_q), s_w), (a2, c2)
 
         taps, a1, c1, amax, pw, quantized, affine = self._cached(
             ("pw", self.routes.int8_k), x, build)

@@ -75,6 +75,11 @@ class CheckpointManager:
         meta = json.dumps({"step": int(step), "miou": float(miou)}).encode()
         _atomic_write(self._best_meta_path(), lambda f: f.write(meta))
 
+    def restore_best(self) -> Optional[Dict[str, Any]]:
+        """The best model's saved state, or None where there is none."""
+        steps = self._steps(self.best_directory)
+        return self._load(self.best_directory, steps[-1]) if steps else None
+
     # ------------------------------------------------------- rotating
     @staticmethod
     def _steps(directory: str) -> List[int]:

@@ -10,7 +10,8 @@ __all__ = ["parse_args"]
 
 def parse_args(argv=None):
     """``--config-file``, ``--log-iter``, ``--val-epoch``, ``--skip-val``,
-    ``--resume`` and the trailing ``KEY VALUE`` config overrides."""
+    ``--resume``, ``--best`` and the trailing ``KEY VALUE`` config
+    overrides."""
     parser = argparse.ArgumentParser(description="SegmenTron (PyTorch/CUDA port)")
     parser.add_argument("--config-file", metavar="FILE", default=None, help="config file path")
     parser.add_argument("--log-iter", type=int, default=10, help="log every N iters")
@@ -18,6 +19,8 @@ def parse_args(argv=None):
     parser.add_argument("--skip-val", action="store_true", default=False, help="skip validation")
     parser.add_argument("--resume", action="store_true", default=False,
                         help="resume from the latest snapshot")
+    parser.add_argument("--best", action="store_true", default=False,
+                        help="eval: restore the best-mIoU snapshot instead of the latest")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
                         help="config overrides: KEY VALUE pairs")
     return parser.parse_args(argv)

@@ -108,7 +108,8 @@ def test_confusion_matrix_and_scores_match_jax():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("TEST.FLIP", "true"), ("TEST.SCALES", "[0.75, 1.0]"), ("TEST.CROP_SIZE", "512"),
+    ("TPU.INT8_ACTIVATIONS", "full"), ("TPU.INT8_CALIBRATE", "true"),
+    ("TPU.INT8_CALIBRATION_BATCHES", "2"),
     ("TEST.BUCKET_QUANT", "32"), ("TEST.SPATIAL_SHARD", "true"),
 ])
 def test_evaluator_unported_modes_raise(eval_cfg, key, value):

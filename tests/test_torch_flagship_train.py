@@ -43,7 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import Mesh
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
 from torch.utils.checkpoint import CheckpointPolicy
 
 import segmentron_tpu.data._native as jax_native
@@ -151,6 +151,9 @@ def reference():
                                                               variables["batch_stats"]),
                            opt_state=tx.init(params), rng=jax.random.PRNGKey(0))
         mesh = Mesh(np.asarray(jax.devices()[:1]), ("data",))
+        # committed to the mesh as the step's outputs are, so that the second
+        # step reuses the first one's executable instead of compiling again
+        state = jax.device_put(state, NamedSharding(mesh, PartitionSpec()))
         augment = JaxDeviceAugment(CROP, list(jcfg.DATASET.MEAN), list(jcfg.DATASET.STD), pad)
         step = jax_make_train_step(model, jax_loss("DeepLabV3_Plus", **LOSS_KW), tx, mesh,
                                    donate=False, augment=augment)

@@ -130,9 +130,10 @@ def test_int8_matmul_is_exact_beyond_f32():
 
 
 def test_qconv_refuses_what_is_not_ported():
+    """Grouped (depthwise) int8 convolutions are not ported; any kernel
+    size, stride and dilation is (tests/test_torch_int8_resnet.py)."""
     q = tq.quantize_static(torch.zeros(1, 4, 4, 8), torch.ones(8))
-    for kw in (dict(w=torch.zeros(3, 3, 8, 8)), dict(w=torch.zeros(1, 1, 8, 8), stride=2),
-               dict(w=torch.zeros(1, 1, 1, 8), groups=8)):
+    for kw in (dict(w=torch.zeros(1, 1, 1, 8), groups=8), dict(w=torch.zeros(3, 3, 4, 8), groups=2)):
         with pytest.raises(NotImplementedError):
             tq.qconv(q, **kw)
 
@@ -304,7 +305,7 @@ def test_deeplab_path_b_matches_jax(jax_knobs, flagship_cfg, monkeypatch):
 
 # ---------------------------------------------------------------- refusals
 @pytest.mark.parametrize("key,value", [
-    ("TPU.INT8_RESNET", "True"),
+    ("TPU.INT8_ACTIVATIONS", "full"),
     ("TPU.INT8_CALIBRATE", "True"),
     ("TPU.INT8_CALIBRATION_BATCHES", "4"),
 ])

@@ -28,7 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import Mesh
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 import segmentron_tpu.models.backbones.resnet as jax_resnet
 import segmentron_tpu.models.danet as jax_danet_mod
@@ -161,6 +161,9 @@ def test_two_steps_match_jax(cfgs, no_dropout, resnet_tiny, name, opts):
                        batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
                        opt_state=tx.init(params), rng=jax.random.PRNGKey(0))
     mesh = Mesh(np.asarray(jax.devices()[:1]), ("data",))
+    # committed to the mesh as the step's outputs are, so that the second
+    # step reuses the first one's executable instead of compiling again
+    state = jax.device_put(state, NamedSharding(mesh, PartitionSpec()))
     jax_step = jax_make_train_step(jax_model, jax_loss(name, **loss_kw), tx, mesh, donate=False)
 
     schedule = get_lr_scheduler(pcfg, ITERS_PER_EPOCH)

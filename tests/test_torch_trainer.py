@@ -9,27 +9,30 @@ report off (a log line that lowers the model once more) and dropout off
 on both sides (the frameworks cannot draw the same bits). The flagship
 YAML with 2 middle blocks, f32, batch 4 of 128x128 crops from 96x128
 sources augmented on the device, 8 train and 4 val images, 2 epochs of 2
-steps, validation after the second epoch. After construction the port's
-model takes the JAX Trainer's initial variables (flax's default init,
-through the weight bridge). The first loss is held to rtol 1e-5, the
-later ones, on updated weights, to rtol 1e-3, and the validation's
-confusion matrix to at most 0.5 % of the labelled pixels moved between
-cells. SGD runs at LR 1e-4: this net amplifies the f32 rounding of each
-update step by step (tests/test_torch_flagship_train.py), and at 1e-3
-the port's own fourth loss at 1, 2 and 4 CPU threads (the same math
-summed in other orders) spreads over 3.0459-3.0627 (5.5e-3 relative;
-the JAX package's 3.0535 inside), where at 1e-4 it spreads over
-3.11150-3.11241 (2.9e-4; the JAX package's 3.11233) and the confusion
-matrices differ from the JAX one's in 0.04-0.07 % of the pixels.
+steps, validation after the second epoch. Both start from the same
+seeded numpy variables (tests/test_torch_modules.py::jax_variables; the
+JAX model's ``init`` returns them, which spares its Trainer the compile
+of flax's initializers), the port's through the weight bridge. The first
+loss is held to rtol 1e-5, the later ones, on updated weights, to rtol
+1e-3, and the validation's confusion matrix to at most 0.5 % of the
+labelled pixels moved between cells. SGD runs at LR 1e-4: this net
+amplifies the f32 rounding of each update step by step
+(tests/test_torch_flagship_train.py); at 1e-3 the port's own fourth loss
+at 1, 2 and 4 CPU threads (the same math summed in other orders) spread
+over 5.5e-3 relative (measured from flax's initial variables). At 1e-4,
+from the seeded ones, the port's four losses at 1, 2 and 4 threads lie
+within 1.4e-6, 1.1e-5, 9.6e-5 and 6.5e-5 of the JAX Trainer's (fourth:
+3.168078, 3.168025, 3.168035 against 3.167871), and the confusion
+matrices differ from the JAX one's in 0.029-0.040 % of the pixels.
 
-The losses alone would miss a wrong LR schedule: one built for 3
-iterations an epoch where the loader gives 2 moves the fourth loss by
-9.6e-4 relative. So the final state is held too. The port's update of
-all parameters, over the 4 steps, lies at a relative L2 distance of
-0.039, 0.031 and 0.028 (1, 2 and 4 CPU threads) from the JAX Trainer's,
-and its BN running statistics within 2.3e-4, 2.0e-4 and 5.4e-4 of
-max|value|; the gates are 0.1 and 1e-3. Planted faults: the schedule
-above reads 0.270, 0.267, 0.264 (statistics 1.9e-3 to 2.1e-3), and a
+The losses alone would miss a wrong LR schedule (one built for 3
+iterations an epoch where the loader gives 2 moved the fourth loss by
+9.6e-4 relative from flax's initial variables). So the final state is
+held too. The port's update of all parameters, over the 4 steps, lies at
+a relative L2 distance of 0.045, 0.036 and 0.025 (1, 2 and 4 CPU
+threads) from the JAX Trainer's, and its BN running statistics within
+2.4e-4, 1.7e-4 and 2.0e-4 of max|value|; the gates are 0.1 and 1e-3.
+Planted faults: the schedule above reads 0.252, 0.250, 0.250, and a
 Trainer that skips ``optimizer.step`` reads 1.0.
 
 The port-only tests use a shorter net (1 middle block, batch 2 of 64x64
@@ -54,6 +57,7 @@ import segmentron_tpu.modules.module as jax_module_mod
 import segmentron_tpu_torch.engine.trainer as port_trainer_mod
 from segmentron_tpu.config import cfg as jax_cfg
 from segmentron_tpu.data import dataloader as jax_datasets
+from segmentron_tpu.models import get_segmentation_model as jax_model_zoo
 from segmentron_tpu_torch.config import cfg as port_cfg
 from segmentron_tpu_torch.data import dataloader as port_datasets
 from segmentron_tpu_torch.engine import Trainer
@@ -62,6 +66,7 @@ from segmentron_tpu_torch.tools import train as train_tool
 from segmentron_tpu_torch.utils import default_setup
 from segmentron_tpu_torch.utils.checkpoint import CheckpointManager
 from segmentron_tpu_torch.utils.convert import from_flax_variables
+from test_torch_modules import jax_variables
 
 torch.set_num_threads(2)
 
@@ -148,6 +153,11 @@ def parity(tmp_path_factory):
         mp.setitem(port_datasets.datasets, "synthetic", _synthetic(port_datasets, 8, (96, 128)))
         tmp = tmp_path_factory.mktemp("parity")
         with _cfg(jax_cfg, PARITY_OPTS + ["TRAIN.MODEL_SAVE_DIR", str(tmp / "jax")]):
+            # the JAX Trainer starts from seeded numpy variables (as the
+            # other parity tests do) instead of compiling flax's initializers
+            model = jax_model_zoo()
+            preset = jax_variables(model, np.zeros((1, 128, 128, 3), np.float32))
+            mp.setattr(type(model), "init", lambda self, *args, **kwargs: preset)
             jt = jax_trainer_mod.Trainer(_Args())
             variables = jax.tree_util.tree_map(
                 np.asarray, {"params": jt.state.params, "batch_stats": jt.state.batch_stats})
